@@ -1,6 +1,6 @@
 """Host-side native runtime microbenchmarks: ring buffer + capture engine.
 
-Measures the C++ substrate that feeds the TPU:
+Measures the C++ substrate that feeds the device:
   1. shm ring throughput — writer fills blocks, reader drains, separate
      threads (the inter-stage fabric's memcpy ceiling on this host);
   2. UDP capture loopback — native sendmmsg sender at maximum rate into

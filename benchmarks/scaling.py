@@ -5,14 +5,15 @@ problem size held constant (weak scaling), reporting throughput and
 efficiency vs the 1-device baseline — the BASELINE.json "scaling eff.
 1 chip -> 1 host -> N hosts" axis.
 
-On this single-chip environment the multi-device points run on a virtual
-CPU mesh (functional; the wall-clock numbers are meaningful relative to the
-1-CPU-device point, not to the TPU). On an oversubscribed virtual mesh the
+With fewer devices than mesh points the multi-device points run on a
+virtual CPU mesh (functional; the wall-clock numbers are meaningful
+relative to the 1-CPU-device point, not to any accelerator). On an
+oversubscribed virtual mesh the
 classic per-device efficiency is meaningless (N virtual devices share the
 same cores), so the report also carries ``total_throughput_ratio`` =
 sps(N)/sps(1): its ideal is ~1.0 there (sharding and collectives add no
 overhead), and on real hardware it equals N x weak-scaling efficiency.
-On a real pod, run unmodified: devices are whatever `jax.devices()`
+On a multi-GPU host, run unmodified: devices are whatever `jax.devices()`
 reports after `init_distributed()`.
 
 Usage: python benchmarks/scaling.py [--ndf-per-dev 512] [--iters 5]

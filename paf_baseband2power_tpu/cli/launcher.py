@@ -2,10 +2,10 @@
 
 Reference parity (``paf-baseband2power.py:97-131``): parse the INI config,
 compute ring block sizes, create both ring buffers, launch the three stages
-(disk replay -> TPU compute -> disk spill) as separate OS processes with
+(disk replay -> device compute -> disk spill) as separate OS processes with
 optional CPU pinning, join them, destroy the rings. Also supports a
-single-process ``--mode file`` that skips the rings entirely (the TPU-native
-fast path; rings exist for operational parity and multi-process topologies).
+single-process ``--mode file`` that skips the rings entirely (the
+one-process fast path; rings exist for operational parity and multi-process topologies).
 """
 
 from __future__ import annotations

@@ -62,10 +62,9 @@ def main(argv=None) -> int:
                     help="skip zero-filling blocks (reference behavior)")
     ap.add_argument("--device-layout", action="store_true",
                     help="corner-turn frames on the host (SIMD) into the "
-                    "TPU series-row layout; the ring header carries "
+                    "series-row layout; the ring header carries "
                     "ORDER SERIES so consumers pick the rows view (fine-"
-                    "channel kernels then skip the ~45 ms/block device "
-                    "relayout)")
+                    "channel steps then skip the device corner turn)")
     args = ap.parse_args(argv)
 
     from ..io import ringbuffer as rb

@@ -4,7 +4,7 @@ One instance runs per host. Bootstrap is env-driven (cluster launchers):
   PAFB2P_COORDINATOR  host:port of process 0
   PAFB2P_NUM_PROCS    total processes
   PAFB2P_PROC_ID      this process's rank
-(unset -> single process; on TPU pods jax auto-detects.)
+(unset -> single process; a multi-process job needs all three.)
 
 Each host feeds only its owned (beam, frame) slice — from a local ring
 buffer (the capture engine's output) or the deterministic synthetic
@@ -34,7 +34,7 @@ def main(argv=None) -> int:
     ap.add_argument("--mean", action="store_true")
     ap.add_argument("--pfb", type=int, default=0, metavar="NFFT",
                     help="fine-channelize (PFB) before detection; the "
-                    "overlap-save halo crosses hosts over DCN")
+                    "overlap-save halo crosses hosts")
     ap.add_argument("--ntap", type=int, default=4, help="PFB taps")
     ap.add_argument("--stokes", action="store_true",
                     help="full-Stokes records (composes with --pfb)")
@@ -43,8 +43,8 @@ def main(argv=None) -> int:
                     "(composes with --pfb/--stokes)")
     ap.add_argument("--device-layout", action="store_true",
                     help="feed series-row (ORDER SERIES) blocks; beams "
-                    "run data-parallel through the production rows "
-                    "kernels with zero collectives")
+                    "run data-parallel through the rows steps with zero "
+                    "collectives")
     ap.add_argument("--scatter-output", action="store_true",
                     help="reduce_scatter composed fine-channel spectra "
                     "over the time axis instead of allreducing (half the "
@@ -59,9 +59,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stats-json", action="store_true")
     args = ap.parse_args(argv)
 
-    from ..runtime import apply_platform_env
+    from ..runtime import setup_compile_cache
 
-    apply_platform_env()
+    setup_compile_cache()
 
     from ..runtime.multihost import MultihostRunner, synthetic_local_source
     from ..runtime.pipeline import FileSink, MemorySink

@@ -1,8 +1,9 @@
 """CLI: convert recordings between the wire and device (series-row) layouts.
 
-``capture --device-layout`` rings and their spills hold blocks in the TPU
-series-row form (``ORDER SERIES`` header) — the fast layout for every
-detection mode, but a non-standard DADA ordering. This tool rewrites a
+``capture --device-layout`` rings and their spills hold blocks in the
+series-row form (``ORDER SERIES`` header) — the layout the fine-channel
+steps take without a device corner turn, but a non-standard DADA
+ordering. This tool rewrites a
 recording in the other layout so device-layout captures stay interoperable
 with stock PSRDADA consumers (and wire archives can be promoted to the
 fast layout for reprocessing): the byte-for-byte inverse of the capture

@@ -29,6 +29,10 @@ NBYTE_IN = 2            # bytes per dim (int16 I/Q), derived: see NCHAN_CHK
 # Channels carried by one frame: 7168 / (128*2*2*2) = 7
 NCHAN_CHK = DT_SIZE // (NSAMP_DF * NPOL_SAMP * NDIM_POL * NBYTE_IN)
 
+# int16 lanes one chunk-frame occupies in the 2-D wire device layout
+# ``(ndf, nchk * LANES_PER_CHUNK)``
+LANES_PER_CHUNK = DT_SIZE // NBYTE_IN   # 3584
+
 # --- Stream geometry (capture.h:19-24) ---------------------------------------
 NCHK_NIC = 48           # frequency chunks received per NIC/node
 NCHK_BMF = 6            # chunks produced per BMF process
@@ -81,6 +85,7 @@ MJD1970 = 40587.0       # MJD of the unix epoch
 # --- Invariants --------------------------------------------------------------
 assert NCHAN_CHK == 7
 assert NCHAN == 336
+assert LANES_PER_CHUNK == 3584
 assert NDF_BLK == 8192
 assert BLOCK_NBYTES == 2_818_572_288
 assert OUT_NBYTES == 1344

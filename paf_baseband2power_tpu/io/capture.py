@@ -1,7 +1,7 @@
 """Python binding for the native UDP capture engine.
 
 Wraps ``native/capture.cpp`` (see its header for the behavioral contract —
-the TPU-native re-design of the reference's pthread capture stack). The
+the re-design of the reference's pthread capture stack). The
 binding drives the probe/start/wait lifecycle, surfaces stream-start info
 for DADA header registration, and exposes per-port packet statistics (the
 ``statistics()`` report of ``capture.c:700-725``).
@@ -92,9 +92,9 @@ class CaptureConf:
     numa_node: int = -1  # NUMA-aware pinning: thread i -> node*10 + i
                          # (the reference's placement, sync.c:48-59)
     device_layout: bool = False  # corner-turn frames during placement
-                                 # into the TPU series-row layout (SIMD on
-                                 # the host) so fine-channel kernels skip
-                                 # the ~45 ms/block device relayout
+                                 # into the series-row layout (SIMD on
+                                 # the host) so fine-channel steps skip
+                                 # the device corner turn
 
     def to_struct(self) -> _ConfStruct:
         s = _ConfStruct()

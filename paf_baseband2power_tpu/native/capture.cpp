@@ -185,10 +185,10 @@ int chunk_of(const pafb2p_capture *h, double freq) {
  * 2.8 GB whole-block memset. */
 /* ---- device-layout corner turn -----------------------------------------
  *
- * TPU fine-channel kernels consume per-series rows: the corner turn from
- * the wire's sample-major payload costs ~45 ms/block of XLA relayout on
- * device (the measured floor — ops/pallas_pfb.py design notes), while the
- * host can do it during frame placement nearly for free. A frame payload
+ * The fine-channel steps consume per-series rows: the corner turn from
+ * the wire's sample-major payload is a full-block transpose on the
+ * device, while the host can do it during frame placement nearly for
+ * free. A frame payload
  * is a 128x14 matrix of 4-byte (re,im) int16 pairs (sample-major); the
  * device layout stores column cls of frame (idf, ichk) as the contiguous
  * 512 B segment at ((ichk*14 + cls)*ndf_blk + idf)*512 — exactly the

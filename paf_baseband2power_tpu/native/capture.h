@@ -60,7 +60,7 @@ typedef struct pafb2p_capture_conf {
                             `i + node*10` placement (sync.c:48-59);
                             -1 = flat cpu_base offset only */
   int device_layout;     /* 1: corner-turn frames during placement into
-                            the TPU series-row layout (one contiguous
+                            the series-row layout (one contiguous
                             512 B segment per (chunk, chan, pol) series
                             per frame) so the device computes fine-channel
                             spectra with zero relayout; 0: reference wire

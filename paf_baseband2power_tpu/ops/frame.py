@@ -20,7 +20,9 @@ contract and used consistently by the generator, golden model, and kernels.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import os
 
 import numpy as np
 
@@ -133,6 +135,19 @@ def split_frame(frame: bytes | memoryview) -> tuple[FrameHeader, np.ndarray]:
     return hdr, payload
 
 
+def _each_chunk(fn, nchk: int, nbytes: int) -> None:
+    """Run ``fn(c)`` for every chunk ``c`` — on threads for blocks of
+    ``nbytes`` >= 64 MiB: NumPy's generators and copies release the GIL,
+    and a full block is 2.8 GB."""
+    workers = min(nchk, os.cpu_count() or 1) if nbytes >= 1 << 26 else 1
+    if workers <= 1:
+        for c in range(nchk):
+            fn(c)
+        return
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        list(pool.map(fn, range(nchk)))
+
+
 def synthetic_block(
     rng: np.random.Generator | int | None = 0,
     ndf: int = NDF_BLK,
@@ -145,13 +160,23 @@ def synthetic_block(
     Returns int16 voltages of shape ``(ndf, nchk, NSAMP_DF, NCHAN_CHK,
     NPOL_SAMP, NDIM_POL)`` — the TFTFP block layout the capture stage writes
     (``capture.c:540-544``). Gaussian noise at ``scale`` LSB rms approximates
-    beamformed sky noise.
+    beamformed sky noise. Each chunk draws from its own stream spawned from
+    ``rng`` (an int seed gives the same block every time; a Generator is
+    advanced by one draw), so chunks generate in parallel.
     """
-    if not isinstance(rng, np.random.Generator):
-        rng = np.random.default_rng(rng)
-    shape = (ndf, nchk, NSAMP_DF, NCHAN_CHK, NPOL_SAMP, NDIM_POL)
-    x = rng.normal(0.0, scale, size=shape)
-    return np.clip(np.rint(x), -32768, 32767).astype(dtype)
+    if isinstance(rng, np.random.Generator):
+        rng = int(rng.integers(2 ** 63))
+    seeds = np.random.SeedSequence(rng).spawn(nchk)
+    out = np.empty((ndf, nchk, NSAMP_DF, NCHAN_CHK, NPOL_SAMP, NDIM_POL),
+                   dtype)
+
+    def chunk(c: int) -> None:
+        x = np.random.default_rng(seeds[c]).normal(
+            0.0, scale, size=(ndf,) + out.shape[2:])
+        out[:, c] = np.clip(np.rint(x), -32768, 32767)
+
+    _each_chunk(chunk, nchk, out.nbytes)
+    return out
 
 
 def block_to_bytes(block: np.ndarray) -> bytes:
@@ -175,9 +200,15 @@ def block_to_rows(block: np.ndarray) -> np.ndarray:
     the rows layout (paf_gen, paf_relayout, multihost feeders, tests).
     """
     ndf, nchk = block.shape[0], block.shape[1]
-    return np.ascontiguousarray(
-        block.transpose(1, 3, 4, 0, 2, 5).reshape(
-            nchk * NCHAN_CHK * NPOL_SAMP, ndf, 2 * NSAMP_DF))
+    per = NCHAN_CHK * NPOL_SAMP
+    out = np.empty((nchk, NCHAN_CHK, NPOL_SAMP, ndf, NSAMP_DF, NDIM_POL),
+                   block.dtype)
+
+    def chunk(c: int) -> None:
+        out[c] = block[:, c].transpose(2, 3, 0, 1, 4)
+
+    _each_chunk(chunk, nchk, block.nbytes)
+    return out.reshape(nchk * per, ndf, 2 * NSAMP_DF)
 
 
 def rows_to_block(rows: np.ndarray, ndf: int, nchk: int) -> np.ndarray:

@@ -2,10 +2,10 @@
 
 The reference links cuFFT and includes it from its (empty) kernels module
 (``makefile:27``, ``kernel.cuh:7``) — a planned fine channelizer in front of
-detection that never shipped. This module provides that capability
-TPU-natively: a critically-sampled polyphase filterbank (windowed-sinc
-prototype FIR folded to ``(ntap, nfft)`` + FFT, the standard radio-astronomy
-F-engine structure) followed by |x|^2 detection and time integration.
+detection that never shipped. This module provides that capability in
+XLA: a critically-sampled polyphase filterbank (windowed-sinc prototype FIR
+folded to ``(ntap, nfft)`` + FFT, the standard radio-astronomy F-engine
+structure) followed by |x|^2 detection and time integration.
 
 Design notes:
   * The FIR fold is expressed as ``ntap`` shifted views multiplied by the
@@ -14,10 +14,19 @@ Design notes:
   * Block boundaries: an ``(ntap-1)*nfft``-sample history from the previous
     block is prepended (overlap-save). Streaming callers thread the history
     through; one-shot callers get zero history (identical to the golden
-    model). Across time-sharded devices the history is exchanged over ICI
-    with ``ppermute`` (see parallel/sharded.py).
+    model). Across time-sharded devices the history is exchanged with
+    ``ppermute`` (see parallel/sharded.py).
   * Output ordering: coarse-channel-major, fine channels fft-shifted so
     frequency ascends within each coarse channel -> ``(nchan * nfft,)``.
+
+  * Block layouts: the wire layout (canonical 6-D or the 2-D device form
+    ``(ndf, nchk*3584)``) and series rows (``(nseries, ndf, 256)``, from
+    ``frame.block_to_rows`` / ``capture --device-layout``). Rows hold the
+    per-(chunk, chan, pol) complex series already, so they need no corner
+    turn; their overlap-save carry is the raw int16 tail frames.
+  * Every matmul states ``PFB_PRECISION`` and the convolution
+    ``PFB_CONV_PRECISION``: a float32 product left at the backend default
+    may run as TF32 (about 3 decimal digits).
 
 Total output for full geometry: 336 * nfft fine channels per integration.
 """
@@ -31,7 +40,16 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..constants import NCHAN_CHK, NPOL_SAMP, NSAMP_DF
+from ..constants import NCHAN_CHK, NDIM_POL, NPOL_SAMP, NSAMP_DF
+
+# Precision of every PFB matmul and of its convolution, chosen on the H100
+# by the error against the float64 golden at full geometry (PERF.md; the
+# spectrometer bound is 2e-4 relative). bf16x3 keeps the matmuls ~100x
+# inside the bound and is the fastest explicit choice there. The
+# convolution (nfft <= 64) ignores dot-algorithm presets on the GPU — its
+# error with any preset equals DEFAULT's, i.e. TF32 — so it states HIGHEST.
+PFB_PRECISION = jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3
+PFB_CONV_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def pfb_coeffs(nfft: int, ntap: int = 4, window: str = "hamming",
@@ -177,14 +195,13 @@ def pfb_spectra_golden(block: np.ndarray, nfft: int, ntap: int = 4,
 
 def pfb_matmul_weights(nfft: int, ntap: int = 4, window: str = "hamming",
                        dtype=np.float32) -> tuple[np.ndarray, np.ndarray]:
-    """Combined FIR x DFT operator for the MXU channelizer path.
+    """Combined FIR x DFT operator for the matmul channelizer path.
 
     ``W[t*nfft + n, k] = coeffs[t, n] * exp(-2j*pi*k*n/nfft)``, so that for a
     stacked window ``z[m, t*nfft+n] = x[(m+t)*nfft + n]`` the channelizer
     output is the single real-pair matmul ``y[m] = z[m] @ W`` — identical to
-    FIR-fold + FFT, but expressed as an ``(ntap*nfft)``-deep contraction the
-    MXU executes at full rate (a 32..128-point ``jnp.fft`` on TPU runs on
-    the VPU an order of magnitude slower). Returns ``(W_re, W_im)``.
+    FIR-fold + FFT, but expressed as one ``(ntap*nfft)``-deep contraction.
+    Returns ``(W_re, W_im)``.
     """
     c = pfb_coeffs(nfft, ntap, window, dtype=np.float64)
     n = np.arange(nfft)
@@ -205,7 +222,7 @@ def _stack_windows(xr: jax.Array, ntap: int) -> jax.Array:
 
 def channelize_matmul(x: jax.Array, w_re: jax.Array, w_im: jax.Array,
                       ) -> tuple[jax.Array, jax.Array]:
-    """MXU PFB: x (..., nsamp) complex64 -> (y_re, y_im) (..., nwin, nfft).
+    """Matmul PFB: x (..., nsamp) complex64 -> (y_re, y_im) (..., nwin, nfft).
 
     Numerically identical to ``channelize`` (same prototype FIR, same DFT)
     but maps onto four f32 matmuls instead of FFTs.
@@ -216,14 +233,14 @@ def channelize_matmul(x: jax.Array, w_re: jax.Array, w_im: jax.Array,
     xr = x.reshape(x.shape[:-1] + (nblk, nfft))
     z = _stack_windows(xr, ntap)
     zr, zi = jnp.real(z), jnp.imag(z)
-    mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
+    mm = functools.partial(jnp.matmul, precision=PFB_PRECISION)
     y_re = mm(zr, w_re) - mm(zi, w_im)
     y_im = mm(zr, w_im) + mm(zi, w_re)
     return y_re, y_im
 
 
-# matmul channelizer wins while ntap*nfft stays MXU-sized; beyond this the
-# O(nfft) per-sample matmul work overtakes the FFT's O(log nfft).
+# the matmul channelizer's per-sample work grows O(ntap*nfft) against the
+# FFT's O(log nfft); beyond this size the FFT path takes over.
 _MATMUL_NFFT_MAX = 256
 
 
@@ -235,9 +252,9 @@ def resolve_method(nfft: int, method: str = "auto") -> str:
 
 
 def default_chunk_groups(nfft: int, nchk: int, method: str = "auto") -> int:
-    """Chunk-group count that keeps the channelizer inside HBM.
+    """Chunk-group count that keeps the channelizer inside device memory.
 
-    The lane-aligned sliding-DFT path (``128 % nfft == 0``) streams rows and
+    The frame-aligned sliding-DFT path (``128 % nfft == 0``) streams rows and
     fits full-geometry blocks whole — grouping would only add slice copies.
     The fft and stacked-matmul paths materialize ~13-22 GB of complex /
     window temporaries on a full block if channelized at once; splitting the
@@ -250,22 +267,16 @@ def default_chunk_groups(nfft: int, nchk: int, method: str = "auto") -> int:
             return g
     return 1
 
-_SLIDE_LANES = 128  # TPU vector lane width: rows of 128 complex samples
-
-# bf16x3 f32 emulation on v5e. Measured on full-scale int16 inputs vs the
-# float64 golden: HIGH 3e-6 max relative error at 0.6x the wall clock of
-# HIGHEST (bf16x6, 2e-7); DEFAULT (single bf16 pass) is 8e-4 — too lossy
-# for a spectrometer backend.
-_SLIDE_PRECISION = jax.lax.Precision.HIGH
+_SLIDE_LANES = NSAMP_DF  # one frame's 128 samples: rows of 128 complex samples
 
 
 def pfb_sliding_mats(nfft: int, ntap: int = 4, window: str = "hamming",
                      ) -> np.ndarray:
     """Row-aligned sliding-DFT operator bank: ``(D, 256, 256) float32``.
 
-    The lane-aligned form of the matmul channelizer. The complex series is
-    viewed as rows of ``L=128`` samples (``2L`` interleaved re/im f32 lanes
-    — exactly complex64's memory layout, so the input is a free bitcast).
+    The frame-aligned form of the matmul channelizer. The complex series is
+    viewed as rows of ``L=128`` samples (one frame each), as ``2L`` f32
+    lanes in the ``[re(L) | im(L)]`` block layout of ``_block_to_rows``.
     Window ``m = g*q + r`` (``g = L/nfft`` windows start in each row ``q``)
     spans rows ``q .. q+D-1``, so
 
@@ -274,10 +285,9 @@ def pfb_sliding_mats(nfft: int, ntap: int = 4, window: str = "hamming",
     with output lanes ``[0,L) = y_re`` at ``r*nfft+k`` and ``[L,2L) = y_im``.
     ``M[d][2j+e, ...]`` carries the DFT phase times the FIR coefficient for
     input sample ``j`` of row ``q+d`` (``e``: re/im), or zero when that
-    sample falls outside window ``m``. Everything stays 128-lane aligned:
-    no padding blow-ups, one ``(nrow,256)@(256,256)`` matmul per ``d``
-    (``D = 1 + ceil((ntap-1)*nfft/L)``), shifted row adds, and the whole
-    FIR+DFT rides the MXU. Requires ``128 % nfft == 0``.
+    sample falls outside window ``m``: one ``(nrow,256)@(256,256)`` matmul
+    per ``d`` (``D = 1 + ceil((ntap-1)*nfft/L)``) and shifted row adds
+    carry the whole FIR+DFT. Requires ``128 % nfft == 0``.
     """
     L = _SLIDE_LANES
     if L % nfft:
@@ -286,9 +296,7 @@ def pfb_sliding_mats(nfft: int, ntap: int = 4, window: str = "hamming",
     w = w_re + 1j * w_im                                  # (ntap*nfft, nfft)
     g = L // nfft
     d_count = 1 + -(-((ntap - 1) * nfft) // L)
-    # input rows are [re lanes | im lanes] blocks (NOT interleaved: a
-    # trailing size-2 re/im axis bribes XLA into a T(2,128)-tiled relayout
-    # copy with ~18x padding; two lane-aligned 128-blocks concat for free)
+    # input rows are [re lanes | im lanes] blocks
     mats = np.zeros((d_count, 2 * L, 2 * L), np.float64)
     for d in range(d_count):
         for r in range(g):
@@ -309,10 +317,10 @@ def pfb_sliding_fir_dft(nfft: int, ntap: int = 4, window: str = "hamming",
     per-tap lane-coefficient vectors, the DFT as one real-pair matmul.
 
     ``pfb_sliding_mats`` bakes the FIR into the DFT operator, so the conv
-    form spends ``ntap * nfft`` MACs per complex sample on the MXU. When
+    form spends ``ntap * nfft`` MACs per complex sample in matmuls. When
     windows tile rows exactly (``nfft == L``), the FIR is a plain
-    elementwise fold across ``ntap`` shifted rows — VPU work — and only the
-    ``nfft``-deep DFT contraction needs the MXU: 4x less matmul work at
+    elementwise fold across ``ntap`` shifted rows and only the
+    ``nfft``-deep DFT contraction is a matmul: 4x less matmul work at
     ntap=4. Returns ``(cvecs (ntap, 2L), fmat (2L, 2L)) float32`` with
     lanes in the ``[re(L) | im(L)]`` block layout of ``_block_to_rows``.
     """
@@ -331,20 +339,62 @@ def pfb_sliding_fir_dft(nfft: int, ntap: int = 4, window: str = "hamming",
     return cvecs.astype(np.float32), fmat.astype(np.float32)
 
 
-def _block_to_rows(block: jax.Array) -> jax.Array:
-    """6-D int16 block -> f32 sliding rows ``(nchk, 7, npol, ndf, 256)``.
+def _as_layout(block: jax.Array, layout: str) -> jax.Array:
+    """Normalize a block to its layout's canonical device form: wire
+    blocks to 6-D (a 2-D ``(ndf, nchk*3584)`` block reshapes inside the
+    jitted program), rows blocks to 3-D ``(nseries, ndf, 256)``."""
+    if layout == "wire":
+        return _reshape_6d(block)
+    if layout != "rows":
+        raise ValueError(f"unknown layout '{layout}'")
+    lanes = NDIM_POL * NSAMP_DF
+    if block.ndim == 2:
+        nseries, cols = block.shape
+        if cols % lanes:
+            raise ValueError(
+                f"rows layout needs {lanes}-lane frame segments per series "
+                f"row, got {cols} columns — is this a wire-order block "
+                "passed as layout='rows'?")
+        block = block.reshape(nseries, cols // lanes, lanes)
+    if block.ndim != 3 or block.shape[0] % (NCHAN_CHK * NPOL_SAMP):
+        raise ValueError(
+            f"rows layout needs (nseries, ndf, {lanes}) with nseries "
+            f"divisible by {NCHAN_CHK * NPOL_SAMP} (chan*pol per chunk), got "
+            f"{block.shape} — is this a wire-order block passed as "
+            "layout='rows'?")
+    return block
+
+
+def _geometry(block: jax.Array, layout: str) -> tuple[int, int, int]:
+    """``(ndf, nchk, npol)`` of a block in its canonical layout form."""
+    if layout == "rows":
+        nseries, ndf, _ = block.shape
+        return ndf, nseries // (NCHAN_CHK * NPOL_SAMP), NPOL_SAMP
+    return block.shape[0], block.shape[1], block.shape[4]
+
+
+def _frames(block: jax.Array, layout: str, start: int, stop: int | None
+            ) -> jax.Array:
+    """Frames ``[start, stop)`` of a block in either layout."""
+    return block[:, start:stop] if layout == "rows" else block[start:stop]
+
+
+def _block_to_rows(block: jax.Array, layout: str = "wire") -> jax.Array:
+    """int16 block -> f32 sliding rows ``(nchk, 7, npol, ndf, 256)``.
 
     One BMF frame carries exactly ``L=128`` consecutive time samples per
-    (chunk, chan, pol), so the row form of the sliding DFT is a single
-    transpose of the raw block — no complex64 intermediate (whose re/im
-    extraction costs a padded relayout per touch) and no reshape tricks.
-    Lanes are ``[re(128) | im(128)]`` blocks: one transpose bringing the
-    re/im axis just above the sample axis, then a free reshape. (Slicing
-    re/im apart and transposing each + concat computes the same thing 9x
-    slower — XLA runs it as two strided relayouts plus a copy.)
+    (chunk, chan, pol), so the row form of the sliding DFT is one transpose
+    of the raw wire block — no complex64 intermediate. Lanes are
+    ``[re(128) | im(128)]`` blocks. Series rows already hold each row; only
+    their interleaved re/im lanes are split into the two blocks.
     """
     x = block.astype(jnp.float32)
-    y = x.transpose(1, 3, 4, 0, 5, 2)              # (nchk,7,pol,ndf,dim,128)
+    if layout == "rows":
+        ndf = x.shape[1]
+        y = x.reshape(-1, NCHAN_CHK, NPOL_SAMP, ndf, _SLIDE_LANES, NDIM_POL)
+        y = y.swapaxes(-1, -2)                     # (nchk,7,pol,ndf,dim,128)
+    else:
+        y = x.transpose(1, 3, 4, 0, 5, 2)          # (nchk,7,pol,ndf,dim,128)
     return y.reshape(y.shape[:-2] + (2 * _SLIDE_LANES,))
 
 
@@ -356,17 +406,14 @@ def _pfb_detect_sliding(xrows: jax.Array, mats: jax.Array, nfft: int,
     ``xrows``: f32 ``(nchk, nchan_chk, npol, nrow, 2L)`` from
     ``_block_to_rows``. The ``D`` shifted row-matmuls are expressed as one
     causal 1-D convolution (feature dim 2L -> 2L, kernel width D, zero
-    future-padding), which XLA lowers to MXU matmuls that slide over rows
-    in VMEM instead of materializing every shifted product.
+    future-padding) instead of materializing every shifted product.
 
     ``fir_dft`` (``nfft == L`` only): factored ``(cvecs, fmat)`` operators
     from ``pfb_sliding_fir_dft`` — the FIR fold runs as an elementwise sum
-    of ``ntap`` shifted rows (VPU, fused by XLA) and the MXU does only the
-    nfft-deep DFT matmul instead of the ntap*nfft-deep conv. Measured
-    gain is small (108 -> 100 ms per full block on v5e): this XLA
-    formulation is bound by its ~40 GB of materialized passes (rows, z,
-    y, epilogue), not the MXU — that is what the fused Pallas kernel in
-    ``ops/pallas_pfb.py`` removes.
+    of ``ntap`` shifted rows (fused by XLA) and only the nfft-deep DFT is a
+    matmul instead of the ntap*nfft-deep conv. This formulation still
+    writes its intermediates (rows, z, y) to device memory; a fused
+    kernel would keep them on chip.
     """
     L = _SLIDE_LANES
     nchk, nchan, npol, nrow, _ = xrows.shape
@@ -383,14 +430,14 @@ def _pfb_detect_sliding(xrows: jax.Array, mats: jax.Array, nfft: int,
         for t in range(1, ntap):
             z = z + cvecs[t] * jax.lax.slice_in_dim(
                 lhs_p, t, t + nrow, axis=1)
-        y = jnp.matmul(z, fmat, precision=_SLIDE_PRECISION)
+        y = jnp.matmul(z, fmat, precision=PFB_PRECISION)
     else:
         d_count = mats.shape[0]
         y = jax.lax.conv_general_dilated(
             lhs, mats,                                    # (D, 2L, 2L) = WIO
             window_strides=(1,), padding=[(0, d_count - 1)],
             dimension_numbers=("NWC", "WIO", "NWC"),
-            precision=_SLIDE_PRECISION)
+            precision=PFB_CONV_PRECISION)
     p = y * y
     p = p[..., :L] + p[..., L:]                           # |y|^2, (.,nrow,L)
     # zero-padded tail rows produce the ntap-1 windows past the series end
@@ -403,13 +450,31 @@ def _pfb_detect_sliding(xrows: jax.Array, mats: jax.Array, nfft: int,
         power = power / (npol * nwin)
     return power
 
-def _block_to_series(block: jax.Array) -> jax.Array:
-    """6-D int16 block -> complex64 (nchk, nchan_chk, npol, nsamp)."""
-    ndf, nchk, nsamp_df, nchan_chk, npol, _ = block.shape
+
+def _block_to_series(block: jax.Array, layout: str = "wire") -> jax.Array:
+    """int16 block -> complex64 (nchk, nchan_chk, npol, nsamp).
+
+    Series rows are that series already (interleaved re/im lanes): a
+    reshape, no transpose. Wire blocks need the corner turn.
+    """
     x = block.astype(jnp.float32)
+    if layout == "rows":
+        nseries, ndf, _ = x.shape
+        x = x.reshape(nseries // (NCHAN_CHK * NPOL_SAMP), NCHAN_CHK,
+                      NPOL_SAMP, ndf * NSAMP_DF, NDIM_POL)
+        return jax.lax.complex(x[..., 0], x[..., 1])
+    ndf, nchk, nsamp_df, nchan_chk, npol, _ = block.shape
     v = jax.lax.complex(x[..., 0], x[..., 1])
     return v.transpose(1, 3, 4, 0, 2).reshape(nchk, nchan_chk, npol,
                                               ndf * nsamp_df)
+
+
+def _rows_carry(block: jax.Array, ntap: int, nfft: int) -> jax.Array:
+    """Overlap-save carry of a rows block: its raw int16 tail frames
+    ``(nseries, ceil((ntap-1)*nfft/128), 256)`` — a pure slice, sharded
+    with its series, so rows streaming needs no collective to carry it."""
+    halo_ndf = -(-(ntap - 1) * nfft // NSAMP_DF)
+    return block[:, block.shape[1] - halo_ndf:]
 
 
 def channelize(x: jax.Array, coeffs: jax.Array) -> jax.Array:
@@ -440,7 +505,7 @@ def _pfb_detect(v: jax.Array, coeffs: jax.Array, mean: bool) -> jax.Array:
 
 def _pfb_detect_matmul(v: jax.Array, w_re: jax.Array, w_im: jax.Array,
                        mean: bool) -> jax.Array:
-    """MXU channelize + detect -> (nchk, nchan_chk, nfft)."""
+    """Matmul channelize + detect -> (nchk, nchan_chk, nfft)."""
     y_re, y_im = channelize_matmul(v, w_re, w_im)
     p = y_re * y_re + y_im * y_im
     power = p.sum(axis=(2, 3))
@@ -452,47 +517,43 @@ def _pfb_detect_matmul(v: jax.Array, w_re: jax.Array, w_im: jax.Array,
 @functools.partial(jax.jit,
                    static_argnames=("nfft", "ntap", "window", "mean", "shift",
                                     "chunk_groups", "return_history",
-                                    "method"))
+                                    "method", "layout"))
 def pfb_power(block: jax.Array, nfft: int, ntap: int = 4,
               window: str = "hamming", mean: bool = False,
               shift: bool = True,
               history: jax.Array | None = None,
               chunk_groups: int | None = None,
               return_history: bool = False,
-              method: str = "auto"):
-    """PFB spectrometer: 6-D int16 block -> (nchan * nfft,) float32 power.
+              method: str = "auto", layout: str = "wire"):
+    """PFB spectrometer: int16 block -> (nchan * nfft,) float32 power.
 
-    ``history``: optional ``(nchk, nchan_chk, npol, (ntap-1)*nfft)``
-    complex64 carry from the previous block (overlap-save streaming). With
-    history, all ``nsamp/nfft`` windows of this block are produced; without
-    it the first ``ntap-1`` windows are simply absent (matching the golden
-    model's one-shot behavior).
+    ``block``: a wire block (canonical 6-D or the 2-D device layout) with
+    ``layout="wire"``, or series rows ``(nseries, ndf, 256)`` (or their 2-D
+    flattening) with ``layout="rows"``.
+
+    ``history``: optional overlap-save carry from the previous block: the
+    complex ``(nchk, nchan_chk, npol, (ntap-1)*nfft)`` series tail
+    (``pfb_history``, what the wire layout returns) or the raw int16 rows
+    tail (what the rows layout returns); ``history_as_complex`` accepts
+    both. With history, all ``nsamp/nfft`` windows of this block are
+    produced; without it the first ``ntap-1`` windows are simply absent
+    (matching the golden model's one-shot behavior).
 
     ``chunk_groups``: channelize the chunk axis in this many sequential
     groups (``lax.map`` over contiguous slices). The FFT path needs ~13 GB
     of complex temporaries if channelized at once — 8-16 groups keeps it
-    inside HBM. The sliding-matmul path fits whole-block; leave groups at 1
-    there (each group costs a ~5.6 GB slice copy, ~40 ms/block). ``None``
-    (default) picks per method via ``default_chunk_groups``.
+    inside device memory. The sliding-matmul path fits whole-block; leave
+    groups at 1 there (each group costs a slice copy). ``None`` (default)
+    picks per method via ``default_chunk_groups``.
 
-    ``method``: ``"matmul"`` (FIR+DFT as MXU matmuls — the lane-aligned
+    ``method``: ``"matmul"`` (FIR+DFT as matmuls — the frame-aligned
     sliding form of ``pfb_sliding_mats`` when ``128 % nfft == 0``, else the
     stacked form of ``pfb_matmul_weights``), ``"fft"`` (``jnp.fft``), or
-    ``"auto"`` — matmul while ``nfft`` is MXU-sized (<= 256), fft beyond.
-    Identical PFB either way; at nfft=128 on v5e the sliding path streams
-    full-geometry blocks at ~6.6 Gsamp/s vs ~2.3 for fft (small-radix FFTs
-    run on the VPU; the MXU form is HBM-bandwidth-bound).
-
-    Jitted with its own call boundary on purpose: the boundary makes XLA
-    materialize the transposed series once before the group loop — fully
-    inlined, the unpack/transpose gets re-fused into (and recomputed by)
-    every ``lax.map`` iteration, ~3x wall clock on full blocks. Callers may
-    wrap ONE more jit around a composition including this (measured
-    harmless); deeper nesting re-introduces relayout copies at each extra
-    boundary.
+    ``"auto"`` — matmul while ``nfft <= 256``, fft beyond. Identical PFB
+    either way.
     """
-    nchk = block.shape[1]
-    npol = block.shape[4]
+    block = _as_layout(block, layout)
+    ndf, nchk, npol = _geometry(block, layout)
     halo = (ntap - 1) * nfft
     if history is not None:
         history = history_as_complex(history, ntap, nfft, npol)
@@ -505,7 +566,7 @@ def pfb_power(block: jax.Array, nfft: int, ntap: int = 4,
                       for w in pfb_matmul_weights(nfft, ntap, window))
         stacked = functools.partial(_pfb_detect_matmul, w_re=w_re, w_im=w_im)
         if _SLIDE_LANES % nfft == 0:
-            # lane-aligned main pass; the (tiny, 128-unaligned) boundary
+            # frame-aligned main pass; the (tiny, unaligned) boundary
             # windows go through the generic stacked form
             fir_dft = None
             if nfft == _SLIDE_LANES:
@@ -527,16 +588,18 @@ def pfb_power(block: jax.Array, nfft: int, ntap: int = 4,
         raise ValueError(f"unknown method '{method}'")
     sliding = boundary_detect is not None
     if sliding:
-        # main pass on the row form (one transpose, no complex64); the tiny
-        # boundary/history series are built from a few edge frames only
-        data = _block_to_rows(block)
+        # main pass on the row form (no complex64); the tiny boundary /
+        # history series are built from a few edge frames only
+        data = _block_to_rows(block, layout)
         halo_ndf = -(-halo // NSAMP_DF)
-        v_lead = _block_to_series(block[:halo_ndf])[..., :halo]
-        v_tail = _block_to_series(block[-halo_ndf:])[..., -halo:]
-        nsamp = block.shape[0] * NSAMP_DF
+        v_lead = _block_to_series(_frames(block, layout, 0, halo_ndf),
+                                  layout)[..., :halo]
+        v_tail = _block_to_series(_frames(block, layout, ndf - halo_ndf,
+                                          None), layout)[..., -halo:]
+        nsamp = ndf * NSAMP_DF
     else:
         boundary_detect = detect
-        data = v = _block_to_series(block)
+        data = v = _block_to_series(block, layout)
         v_lead, v_tail = v[..., :halo], v[..., -halo:]
         nsamp = v.shape[-1]
     nwin_main = nsamp // nfft - (ntap - 1)
@@ -557,8 +620,8 @@ def pfb_power(block: jax.Array, nfft: int, ntap: int = 4,
     if history is not None:
         # Boundary windows: the ntap-1 windows straddling the block edge use
         # history + the block's leading samples. Computing them separately
-        # (tiny) keeps the main pass on nfft-aligned windows — a full-series
-        # concat costs ~3x wall clock and doubles peak HBM.
+        # (tiny) keeps the main pass on nfft-aligned windows and avoids a
+        # full-series concat.
         boundary = jnp.concatenate([history, v_lead], axis=-1)
         power = power + boundary_detect(boundary, mean=False)
         nwin_total += ntap - 1
@@ -569,15 +632,14 @@ def pfb_power(block: jax.Array, nfft: int, ntap: int = 4,
         power = jnp.fft.fftshift(power, axes=-1)
     power = power.reshape(-1)
     if return_history:
-        # next block's overlap-save carry, from edge frames / the series
-        # already built (a separate pfb_history call would redo the work)
-        return power, v_tail
+        return power, (_rows_carry(block, ntap, nfft) if layout == "rows"
+                       else v_tail)
     return power
 
 
 def pfb_history(block: jax.Array, nfft: int, ntap: int = 4) -> jax.Array:
-    """Trailing ``(ntap-1)*nfft`` samples of a block, as the next block's
-    overlap-save carry."""
+    """Trailing ``(ntap-1)*nfft`` samples of a wire block, as the next
+    block's complex overlap-save carry."""
     v = _block_to_series(block)
     return v[..., -(ntap - 1) * nfft:]
 
@@ -588,18 +650,19 @@ def history_as_complex(history: jax.Array, ntap: int, nfft: int,
     ``(nchk, nchan_chk, npol, (ntap-1)*nfft)`` (what ``pfb_history``
     returns).
 
-    The fused Pallas kernels return their carry as raw int16 series rows
-    ``(nseries, halo_ndf, 256)`` — a pure slice of their input (producing
-    the complex form there measured ~11 ms/block at nfft=1024 on v5e).
-    The XLA paths and any inspection/tooling use this converter; complex
-    input passes through unchanged.
+    The rows layout returns its carry as raw int16 tail frames
+    ``(nseries, halo_ndf, 256)`` — a pure slice of its input; the
+    trailing ``(ntap-1)*nfft`` samples of those frames are the carry.
+    Complex input passes through unchanged.
     """
     if jnp.iscomplexobj(history):
         return history
-    nseries = history.shape[0]
+    nseries, halo_ndf, _ = history.shape
     nchk = nseries // (NCHAN_CHK * npol)
     halo = (ntap - 1) * nfft
-    t = history.astype(jnp.float32).reshape(nchk, NCHAN_CHK, npol, halo, 2)
+    t = history.astype(jnp.float32).reshape(nchk, NCHAN_CHK, npol,
+                                            halo_ndf * NSAMP_DF, NDIM_POL)
+    t = t[..., t.shape[3] - halo:, :]
     return jax.lax.complex(t[..., 0], t[..., 1])
 
 
@@ -653,14 +716,14 @@ def spectra_chunk_groups(nchk: int) -> int:
                    static_argnames=("nfft", "ntap", "window", "nout",
                                     "stokes", "mean", "shift",
                                     "chunk_groups", "return_history",
-                                    "method"))
+                                    "method", "layout"))
 def pfb_spectra(block: jax.Array, nfft: int, ntap: int = 4,
                 window: str = "hamming", nout: int = 1,
                 stokes: bool = False, mean: bool = False, shift: bool = True,
                 history: jax.Array | None = None,
                 chunk_groups: int | None = None,
                 return_history: bool = False,
-                method: str = "auto"):
+                method: str = "auto", layout: str = "wire"):
     """Composed fine-channel detection (XLA): PFB x tscrunch x Stokes.
 
     The general-``nfft`` realization of ``pfb_spectra_golden``'s contract:
@@ -671,17 +734,15 @@ def pfb_spectra(block: jax.Array, nfft: int, ntap: int = 4,
     so it channelizes via the stacked-matmul (nfft <= 256) or fft method
     with the chunk axis processed in sequential groups).
 
-    ``history``: complex carry as in ``pfb_power``; the ``ntap-1`` boundary
-    windows it enables land in output spectrum 0 (end-row convention — see
-    the golden docstring). On TPU with ``nfft`` in the fused-kernel set,
-    use ``ops.pallas_pfb.pfb_spectra_fused`` instead (the streaming factory
-    dispatches automatically).
+    ``block`` and ``layout`` as in ``pfb_power``. ``history``: either carry
+    format of ``pfb_power``; the ``ntap-1`` boundary windows it enables
+    land in output spectrum 0 (end-row convention — see the golden
+    docstring). The returned carry is the complex series tail for wire
+    blocks and the raw int16 tail frames for rows blocks.
     """
-    if block.ndim != 6:
-        raise ValueError("pfb_spectra expects the canonical 6-D block")
-    nchk = block.shape[1]
-    npol = block.shape[4]
-    nsamp = block.shape[0] * NSAMP_DF
+    block = _as_layout(block, layout)
+    ndf, nchk, npol = _geometry(block, layout)
+    nsamp = ndf * NSAMP_DF
     nblk = nsamp // nfft
     if nblk % nout:
         raise ValueError(f"nout={nout} must divide {nblk} window slots")
@@ -701,9 +762,8 @@ def pfb_spectra(block: jax.Array, nfft: int, ntap: int = 4,
     if chunk_groups is None:
         chunk_groups = spectra_chunk_groups(nchk)
 
-    v = _block_to_series(block)
+    v = _block_to_series(block, layout)
     halo = (ntap - 1) * nfft
-    v_tail = v[..., -halo:]
 
     def detect_group(sub):
         s = _spectra_detect(sub, nfft, stokes, method, ops)
@@ -742,7 +802,8 @@ def pfb_spectra(block: jax.Array, nfft: int, ntap: int = 4,
     if not stokes:
         out = out[:, 0]
     if return_history:
-        return out, v_tail
+        return out, (_rows_carry(block, ntap, nfft) if layout == "rows"
+                     else v[..., -halo:])
     return out
 
 
@@ -755,50 +816,15 @@ def _reshape_6d(block):
     return block
 
 
-def _fused_geometry_ok(ndf: int, nfft: int, ntap: int, nout: int) -> bool:
-    """Whether this (static) block geometry satisfies the fused kernel's
-    tiling constraints (ops/pallas_pfb.py); otherwise the streaming
-    factories fall back to the XLA path for that shape."""
-    if not 2 <= ntap <= 8:
-        return False
-    n1 = nfft // _SLIDE_LANES
-    if n1 < 1 or ndf % n1:
-        return False
-    nrow = ndf // n1
-    if nrow % nout:
-        return False
-    wpg = nrow // nout
-    return wpg % 8 == 0 and wpg >= max(8, ntap - 1)
-
-
 def make_streaming_spectra(nfft: int, ntap: int = 4, nout: int = 1,
                            stokes: bool = False, **kw):
     """Return ``step(block, history) -> (spectra, new_history)`` for the
-    composed fine-channel modes; accepts 6-D or 2-D device blocks.
-
-    On a TPU backend with ``method="auto"``, ``nfft`` in the fused-kernel
-    set, and a block geometry meeting the fused tiling constraints the
-    step runs ``ops.pallas_pfb.pfb_spectra_fused``; other shapes (and
-    explicit ``method=``) use the XLA path — the choice is per traced
-    shape, so one step object serves both.
+    composed fine-channel modes; ``kw`` goes to ``pfb_spectra`` (``layout``
+    among it), so the step takes wire blocks (6-D or 2-D) or rows blocks.
     """
-    method = kw.get("method", "auto")
-    use_fused = method == "auto" and jax.default_backend() == "tpu"
-    if use_fused:
-        from .pallas_pfb import FUSED_NFFTS, pfb_spectra_fused
-
-        use_fused = nfft in FUSED_NFFTS
-        kw_fused = {k: v for k, v in kw.items()
-                    if k not in ("method", "chunk_groups")}
 
     @jax.jit
     def step(block, history):
-        block = _reshape_6d(block)
-        if use_fused and _fused_geometry_ok(block.shape[0], nfft, ntap,
-                                            nout):
-            return pfb_spectra_fused(block, nfft, ntap, nout=nout,
-                                     stokes=stokes, history=history,
-                                     return_history=True, **kw_fused)
         return pfb_spectra(block, nfft, ntap, nout=nout, stokes=stokes,
                            history=history, return_history=True, **kw)
 
@@ -808,43 +834,15 @@ def make_streaming_spectra(nfft: int, ntap: int = 4, nout: int = 1,
 def make_streaming_pfb(nfft: int, ntap: int = 4,
                        chunk_groups: int | None = None, **kw):
     """Return ``step(block, history) -> (power, new_history)`` for
-    stateful streaming across blocks.
+    stateful streaming across blocks; ``kw`` goes to ``pfb_power``.
 
-    ``block`` may be the canonical 6-D array or the production 2-D device
-    layout ``(ndf, nchk*3584) int16`` — the reshape happens inside the one
-    jitted program, where XLA folds it into the unpack/transpose instead of
-    materializing a relayout copy at a call boundary.
-
-    On a TPU backend with ``method="auto"`` and a fused-compatible
-    ``nfft``/geometry, the step runs the fused Pallas kernel
-    (``ops.pallas_pfb``), which also absorbs the boundary windows
-    in-kernel; incompatible shapes fall back per traced shape, and an
-    explicit ``method=`` always gets the XLA formulation it names.
+    ``block`` may be the canonical 6-D array, the production 2-D device
+    layout ``(ndf, nchk*3584) int16``, or (``layout="rows"``) series rows —
+    the reshape happens inside the one jitted program.
     """
-    method = kw.get("method", "auto")
-    use_fused = method == "auto" and jax.default_backend() == "tpu"
-    if use_fused:
-        from .pallas_pfb import (
-            FUSED_NFFTS,
-            pfb_power_fused,
-            pfb_spectra_fused,
-        )
-
-        use_fused = nfft in FUSED_NFFTS
-        kw2 = {k: v for k, v in kw.items() if k != "method"}
 
     @jax.jit
     def step(block, history):
-        block = _reshape_6d(block)
-        if use_fused and _fused_geometry_ok(block.shape[0], nfft, ntap, 1):
-            if nfft == _SLIDE_LANES:
-                return pfb_power_fused(block, nfft, ntap, history=history,
-                                       return_history=True, **kw2)
-            # generalized fused kernel (Cooley-Tukey N1 x 128); squeeze
-            # the nout=1 spectra axis back to the pfb_power contract
-            out, h = pfb_spectra_fused(block, nfft, ntap, history=history,
-                                       return_history=True, **kw2)
-            return out[0], h
         return pfb_power(block, nfft, ntap, history=history,
                          chunk_groups=chunk_groups, return_history=True,
                          **kw)

@@ -3,22 +3,22 @@
 The reference scales across hosts by running disconnected per-node
 pipelines, partitioned by the UDP addressing scheme — there is no cross-
 node backend at all (SURVEY.md section 5, "Distributed communication
-backend"). The TPU-native design instead forms one SPMD program over all
-hosts: ``jax.distributed`` bootstraps the process group, every host feeds
-its locally-captured blocks into the global array, and XLA routes
-collectives over ICI within a slice and DCN across slices.
+backend"). This design instead forms one SPMD program over all hosts:
+``jax.distributed`` bootstraps the process group (one process per host,
+driving all of that host's cards), every host feeds its locally-captured
+blocks into the global array, and XLA routes collectives over the cards'
+interconnect within a host (NVLink) and the network between hosts.
 
-Axis placement policy (the scaling-book recipe): the ``chunk`` axis —
-whose psum payload is tiny (336 floats) but whose input bandwidth is huge —
-stays *within* a slice (ICI); ``beam`` and ``time`` parallelism, which need
-no or tiny communication, span hosts (DCN).
+Axis placement policy: the ``chunk`` axis — whose psum payload is tiny
+(336 floats) but whose input bandwidth is huge — stays *within* a host;
+``beam`` and ``time`` parallelism, which need no or tiny communication,
+span hosts.
 
-Bootstrap is env-driven for cluster launchers:
+Bootstrap is env-driven for cluster launchers, and all three must be set
+for a multi-process job (nothing detects a cluster on its own):
   PAFB2P_COORDINATOR  host:port of process 0
   PAFB2P_NUM_PROCS    total processes
   PAFB2P_PROC_ID      this process's rank
-(falling back to jax's own auto-detection on TPU pods, where these are
-derived from the pod metadata.)
 """
 
 from __future__ import annotations
@@ -34,10 +34,10 @@ from .mesh import BEAM_AXIS, CHUNK_AXIS, TIME_AXIS
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
                      process_id: int | None = None) -> None:
-    """Initialize the jax process group (idempotent, no-op single-process).
+    """Initialize the jax process group (no-op single-process).
 
-    On TPU pods with no explicit settings, defers to jax's automatic
-    cluster detection.
+    A multi-process job needs the coordinator address, the process count
+    and this process's rank, from the arguments or the environment.
     """
     coordinator = coordinator or os.environ.get("PAFB2P_COORDINATOR")
     if num_processes is None:
@@ -47,6 +47,10 @@ def init_distributed(coordinator: str | None = None,
         process_id = int(pid) if pid is not None else None
     if num_processes in (None, 1) and coordinator is None:
         return  # single process
+    if coordinator is None or num_processes is None or process_id is None:
+        raise ValueError(
+            "multi-process jobs need PAFB2P_COORDINATOR, PAFB2P_NUM_PROCS "
+            "and PAFB2P_PROC_ID (or the matching arguments) all set")
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
@@ -59,7 +63,7 @@ def global_mesh(n_beam: int = 1, n_chunk: int | None = None):
 
     Host boundaries land on the (beam, time) axes; ``n_chunk`` defaults to
     the local device count so the chunk axis never crosses hosts (keeping
-    its collectives on ICI).
+    its collectives on the host's own interconnect).
     """
     from .mesh import make_beam_mesh
 

@@ -2,12 +2,14 @@
 
 The reference scales by share-nothing deployment: one capture+GPU pipeline
 per NIC/beam/node, partitioned by the UDP addressing scheme
-(``capture.c:570-584``). The TPU-native design replaces that with a single
-SPMD program over a named mesh:
+(``capture.c:570-584``). This design replaces that with a single SPMD
+program over a named mesh. The mesh follows the algorithm only: the cards
+of one host reach each other all to all (NVLink), so no axis order is
+cheaper than another there.
 
   * ``time``  — the 8192-frame block axis is split into sub-blocks; each
     device integrates its partial window and the partials are ``psum``-ed
-    over ICI (cheap: the reduced payload is 336 floats).
+    (cheap: the reduced payload is 336 floats).
   * ``chunk`` — the 48 frequency chunks (336 channels) are sharded; no
     communication is needed on this axis at all, mirroring the reference's
     frequency partitioning.

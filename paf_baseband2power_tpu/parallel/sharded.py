@@ -3,7 +3,7 @@
 Communication design (contrast with the reference's PSRDADA shm fabric,
 SURVEY.md section 2 last row): the only cross-device exchange the direct
 power path needs is a ``psum`` of partial integrations over the ``time``
-axis — 336 float32 per block, riding ICI. The ``chunk`` (frequency) axis is
+axis — 336 float32 per block. The ``chunk`` (frequency) axis is
 embarrassingly parallel, exactly like the reference's per-NIC chunk
 partitioning (``capture.c:570-584``), so it needs no collectives.
 """
@@ -94,8 +94,8 @@ def make_multibeam_power_step_2d(mesh, mean: bool = False):
     Input: int16 blocks of shape ``(nbeam, ndf, nchk * 3584)`` sharded
     ``P(beam, time, chunk)`` — per-beam blocks exactly as ring buffers and
     the capture engine deliver them, stacked. The 6-D unpack happens on the
-    reduced partials *inside* the jitted program (a 6-D device operand at a
-    call boundary costs a full-block relayout copy, ops/pallas_power.py).
+    reduced partials *inside* the jitted program, so no 6-D copy of the
+    block is ever made.
     Output: ``(nbeam, nchk * 7)`` float32 sharded ``P(beam, chunk)``.
     """
     from ..constants import DT_SIZE, NCHAN_CHK, NDIM_POL, NPOL_SAMP, NSAMP_DF
@@ -278,9 +278,9 @@ def _composed_shard_body(v, npol: int, n_time: int, nfft: int, ntap: int,
     if scatter_output and n_time > 1:
         # reduce_scatter instead of allreduce: each time shard keeps only
         # its own nout/n_time output groups — half the fine-channel
-        # waterfall's collective bytes (the one poorly-scaling payload,
-        # SCALING_BUDGET.md) and no broadcast back. Requires
-        # n_time | nout (validated in the factory).
+        # waterfall's collective bytes (the one large collective payload)
+        # and no broadcast back. Requires n_time | nout (validated in the
+        # factory).
         g = jax.lax.psum_scatter(g, TIME_AXIS, scatter_dimension=3,
                                  tiled=True)
         nout_l = nout // n_time
@@ -303,28 +303,25 @@ def _composed_shard_body(v, npol: int, n_time: int, nfft: int, ntap: int,
     return (out, carry) if return_history else out
 
 
-def _oneshot_step(mesh, body, in_spec, out_spec, check_vma: bool = True):
+def _oneshot_step(mesh, body, in_spec, out_spec):
     """jit(shard_map) of a ``body(x, history, return_history)`` in its
     one-shot form — shared by every step factory."""
-    kw = {} if check_vma else {"check_vma": False}
     return jax.jit(functools.partial(
-        jax.shard_map, mesh=mesh, in_specs=in_spec, out_specs=out_spec,
-        **kw)(lambda x: body(x, None, False)))
+        jax.shard_map, mesh=mesh, in_specs=in_spec,
+        out_specs=out_spec)(lambda x: body(x, None, False)))
 
 
-def _streaming_step(mesh, body, in_spec, out_spec, hspec,
-                    check_vma: bool = True):
+def _streaming_step(mesh, body, in_spec, out_spec, hspec):
     """The streaming program pair for a ``body(x, history,
     return_history)``: a no-history trace (first block) and a
     with-history trace, behind one ``step(x, history=None) ->
     (out, new_history)`` dispatcher — shared by every step factory."""
-    kw = {} if check_vma else {"check_vma": False}
     step0 = jax.jit(functools.partial(
         jax.shard_map, mesh=mesh, in_specs=(in_spec,),
-        out_specs=(out_spec, hspec), **kw)(lambda x: body(x, None, True)))
+        out_specs=(out_spec, hspec))(lambda x: body(x, None, True)))
     step1 = jax.jit(functools.partial(
         jax.shard_map, mesh=mesh, in_specs=(in_spec, hspec),
-        out_specs=(out_spec, hspec), **kw)(lambda x, h: body(x, h, True)))
+        out_specs=(out_spec, hspec))(lambda x, h: body(x, h, True)))
 
     def step(x, history=None):
         return step0(x) if history is None else step1(x, history)
@@ -370,8 +367,7 @@ def make_sharded_spectra_step(mesh, nfft: int, ntap: int = 4,
     axis instead of allreducing (requires ``n_time | nout``): the output
     spectra axis comes back SHARDED ``P(time, ...)``, each shard owning
     its contiguous nout/n_time groups — half the collective bytes of
-    the waterfall psum (the one poorly-scaling payload,
-    SCALING_BUDGET.md) and the natural layout for a time-frequency
+    the waterfall psum and the natural layout for a time-frequency
     consumer.
     """
     from ..ops.pfb import _block_to_series
@@ -408,11 +404,10 @@ def make_sharded_pfb_step(mesh, nfft: int, ntap: int = 4,
 
     Each time shard channelizes its local sub-block. The FIR needs
     ``(ntap-1)*nfft`` samples of look-ahead at the shard boundary, so every
-    shard sends its leading halo to the *previous* shard over ICI
-    (``ppermute``) — the overlap-save boundary state the reference's
-    blocked design avoids and a cuFFT channelizer would have forced on it.
-    The last shard has no successor: its final ``ntap-1`` windows are
-    masked out, matching the golden model's one-shot window count. Partial
+    shard sends its leading halo to the *previous* shard (``ppermute``) —
+    the overlap-save boundary state the reference's blocked design avoids
+    and a cuFFT channelizer would have forced on it. The last shard has
+    no successor: its final ``ntap-1`` windows are masked out, matching the golden model's one-shot window count. Partial
     spectra are then ``psum``-ed over the time axis.
 
     Output: ``(nchk * 7 * nfft,)`` float32, sharded over ``chunk``.
@@ -503,7 +498,7 @@ def make_multibeam_pfb_step_2d(mesh, nfft: int, ntap: int = 4,
     time shard, psum partial spectra) vmapped over this shard's beams —
     collectives over the ``time`` mesh axis compose with vmap, so when
     host boundaries land on the time axis the overlap-save halo crosses
-    processes over DCN.
+    processes over the network.
     Output ``(nbeam, nchk*7*nfft)`` sharded ``P(beam, chunk)``.
 
     ``streaming``: ``step(blocks, history=None) -> (out, new_history)``
@@ -687,47 +682,67 @@ def make_multibeam_composed_step_2d(mesh, nfft: int = 0, ntap: int = 4,
     return _streaming_step(mesh, body, in_spec, out_spec, hspec)
 
 
+def _rows_body(rows, history, return_history, nfft: int, ntap: int,
+               window: str, nout: int, stokes: bool, mean: bool,
+               shift: bool):
+    """Per-shard detection of a series-row block ``(nseries, ndf, 256)``.
+
+    Every rows step is series-independent, so a shard holding whole
+    frequency chunks needs no collective. Returns ``(nout, [4,]
+    nchan*max(nfft,1))`` (+ the raw int16 rows carry with
+    ``return_history``)."""
+    from ..constants import NCHAN_CHK, NPOL_SAMP
+    from ..ops.pfb import pfb_spectra
+    from ..ops.power import (
+        baseband2power_scrunch_rows,
+        baseband2stokes_scrunch_rows,
+    )
+
+    if rows.shape[0] % (NCHAN_CHK * NPOL_SAMP):
+        raise ValueError(
+            f"series shard {rows.shape[0]} must hold whole frequency "
+            f"chunks ({NCHAN_CHK * NPOL_SAMP} series each): use a chunk "
+            "mesh extent dividing nchk")
+    if nfft:
+        return pfb_spectra(
+            rows, nfft, ntap, window=window, nout=nout, stokes=stokes,
+            mean=mean, shift=shift, layout="rows", history=history,
+            return_history=return_history)
+    fn = (baseband2stokes_scrunch_rows if stokes
+          else baseband2power_scrunch_rows)
+    return fn(rows, nout, mean=mean)
+
+
 def make_multibeam_rows_step(mesh, nfft: int = 0, ntap: int = 4,
                              window: str = "hamming", nout: int = 1,
                              stokes: bool = False, mean: bool = False,
-                             shift: bool = True, interpret: bool = False,
-                             streaming: bool = False):
+                             shift: bool = True, streaming: bool = False):
     """Beam-parallel detection on device-layout (series-row) blocks.
 
     The rows layout makes beam data-parallelism trivial: a beam-stacked
     rows block ``(nbeam, nseries, ndf, 256) int16`` is, per beam, exactly
-    what a ``capture --device-layout`` ring holds, and every rows kernel
-    is series-major — so each beam shard runs the production fused
-    kernels locally with ZERO collectives (the reference's actual
-    scale-out model: one independent pipeline per beam/node,
-    ``paf_capture.c:114-118``). Any composition: ``nfft`` > 0 for the
-    fused fine-channel spectrometer (one-shot per block), else the rows
-    power / Stokes (x tscrunch) kernels.
+    what a ``capture --device-layout`` ring holds, and every rows step is
+    series-major — so each beam shard runs the rows steps locally with
+    ZERO collectives (the reference's actual scale-out model: one
+    independent pipeline per beam/node, ``paf_capture.c:114-118``). Any
+    composition: ``nfft`` > 0 for the fine-channel spectrometer, else the
+    rows power / Stokes (x tscrunch) reductions.
 
     The series axis additionally shards over the ``chunk`` mesh axis
     (``make_sharded_rows_step``'s zero-collective TP form), so meshes
-    with more devices than beams still use every chip — each shard owns
+    with more devices than beams still use every device — each shard owns
     (its beams) x (a whole-frequency-chunk series range). Requires
     ``n_chunk | nchk``.
 
     Output (sharded ``P(beam, ..., chunk-on-channels)``):
-    ``(nbeam, nout, [4,] nchan*max(nfft,1))`` float32. ``interpret``
-    runs the Pallas kernels in interpret mode (CPU-mesh tests; on TPU
-    leave False).
+    ``(nbeam, nout, [4,] nchan*max(nfft,1))`` float32.
 
     ``streaming`` (``nfft`` > 0 only): ``step(blocks, history=None) ->
-    (out, new_history)`` with the fused kernels' raw int16 rows carry,
-    stacked per beam — ``(nbeam, nseries, (ntap-1)*nfft/128, 256)``
-    sharded ``P(beam, chunk)`` exactly like the blocks. The carry is a
-    pure slice of each shard's own input, so rows streaming needs ZERO
-    collectives.
+    (out, new_history)`` with the raw int16 rows carry, stacked per beam —
+    ``(nbeam, nseries, ceil((ntap-1)*nfft/128), 256)`` sharded
+    ``P(beam, chunk)`` exactly like the blocks. The carry is a pure slice
+    of each shard's own input, so rows streaming needs ZERO collectives.
     """
-    from ..ops.pallas_pfb import pfb_spectra_fused
-    from ..ops.pallas_power import (
-        baseband2power_scrunch_rows_pallas,
-        baseband2stokes_scrunch_rows_pallas,
-    )
-
     if streaming and not nfft:
         raise ValueError(
             "streaming carries exist only for fine-channel (nfft > 0) "
@@ -738,62 +753,29 @@ def make_multibeam_rows_step(mesh, nfft: int = 0, ntap: int = 4,
     hspec = P(BEAM_AXIS, CHUNK_AXIS)
 
     def body(blocks, history, return_history):
-        nbeam_l, nseries, ndf, lanes = blocks.shape
-        from ..constants import NCHAN_CHK, NPOL_SAMP
+        def one(rows, h):
+            return _rows_body(rows, h, return_history, nfft, ntap, window,
+                              nout, stokes, mean, shift)
 
-        if nseries % (NCHAN_CHK * NPOL_SAMP):
-            raise ValueError(
-                f"series shard {nseries} must hold whole frequency "
-                f"chunks ({NCHAN_CHK * NPOL_SAMP} series each): use a "
-                "chunk mesh extent dividing nchk")
-        # beams concatenate on the series axis: the kernels see one
-        # wider rows block (nchk' = nbeam_l * nchk_local) — no vmap over
-        # pallas_call needed, grids simply scale
-        stacked = blocks.reshape(nbeam_l * nseries, ndf, lanes)
-        if nfft:
-            out = pfb_spectra_fused(
-                stacked, nfft, ntap, window=window, nout=nout,
-                stokes=stokes, mean=mean, shift=shift, layout="rows",
-                history=(None if history is None
-                         else history.reshape(nbeam_l * nseries, -1, lanes)),
-                return_history=return_history, interpret=interpret)
-            if return_history:
-                out, h = out
-                h = h.reshape(nbeam_l, nseries, -1, lanes)
-            # (nout, [4,] nbeam_l*nchan*nfft) -> beam-major leading axis
-            lead = out.shape[:-1]
-            out = out.reshape(lead + (nbeam_l, nseries // 2 * nfft))
-            out = jnp.moveaxis(out, -2, 0)
-            return (out, h) if return_history else out
-        if stokes:
-            out = baseband2stokes_scrunch_rows_pallas(
-                stacked, nout, mean=mean, interpret=interpret)
-        else:
-            out = baseband2power_scrunch_rows_pallas(
-                stacked, nout, mean=mean, interpret=interpret)
-        lead = out.shape[:-1]
-        out = out.reshape(lead + (nbeam_l, nseries // 2))
-        return jnp.moveaxis(out, -2, 0)
+        if history is None:
+            return jax.vmap(lambda b: one(b, None))(blocks)
+        return jax.vmap(one)(blocks, history)
 
-    # check_vma=False: pallas_call outputs carry no vma annotations
     if not streaming:
-        return _oneshot_step(mesh, body, in_spec, out_spec,
-                             check_vma=False)
-    return _streaming_step(mesh, body, in_spec, out_spec, hspec,
-                           check_vma=False)
+        return _oneshot_step(mesh, body, in_spec, out_spec)
+    return _streaming_step(mesh, body, in_spec, out_spec, hspec)
 
 
 def make_sharded_rows_step(mesh, nfft: int = 0, ntap: int = 4,
                            window: str = "hamming", nout: int = 1,
                            stokes: bool = False, mean: bool = False,
-                           shift: bool = True, interpret: bool = False,
-                           streaming: bool = False):
+                           shift: bool = True, streaming: bool = False):
     """Single-beam multi-device detection on a device-layout block:
     the series axis is the natural tensor-parallel axis of the rows
-    form — every kernel (power, Stokes, the fused fine-channel
-    spectrometer) is series-independent, so sharding
-    ``(nseries, ndf, 256)`` over ``chunk`` needs ZERO collectives and
-    the output channels simply follow their series shard.
+    form — every step (power, Stokes, the fine-channel spectrometer) is
+    series-independent, so sharding ``(nseries, ndf, 256)`` over
+    ``chunk`` needs ZERO collectives and the output channels simply
+    follow their series shard.
 
     Requires ``n_chunk | nchk`` (shards own whole frequency chunks, so
     polarization pairs and the channel-grouping epilogue never straddle
@@ -802,47 +784,22 @@ def make_sharded_rows_step(mesh, nfft: int = 0, ntap: int = 4,
 
     ``streaming`` (``nfft`` > 0 only): ``step(rows, history=None) ->
     (out, new_history)`` — the raw int16 rows carry
-    ``(nseries, (ntap-1)*nfft/128, 256)`` shards over ``chunk`` exactly
-    like the input (a pure slice of each shard's own series), so
+    ``(nseries, ceil((ntap-1)*nfft/128), 256)`` shards over ``chunk``
+    exactly like the input (a pure slice of each shard's own series), so
     streaming on the rows TP axis needs ZERO collectives.
     """
-    from ..constants import NCHAN_CHK, NPOL_SAMP
-    from ..ops.pallas_pfb import pfb_spectra_fused
-    from ..ops.pallas_power import (
-        baseband2power_scrunch_rows_pallas,
-        baseband2stokes_scrunch_rows_pallas,
-    )
-
     if streaming and not nfft:
         raise ValueError(
             "streaming carries exist only for fine-channel (nfft > 0) "
             "modes — coarse-channel detection has no cross-block state")
-    n_chunk = mesh.shape[CHUNK_AXIS]
     out_spec = (P(None, None, CHUNK_AXIS) if stokes
                 else P(None, CHUNK_AXIS))
     hspec = P(CHUNK_AXIS)
 
     def body(rows, history, return_history):
-        nseries_l = rows.shape[0]
-        if nseries_l % (NCHAN_CHK * NPOL_SAMP):
-            raise ValueError(
-                f"series shard {nseries_l} must hold whole frequency "
-                f"chunks ({NCHAN_CHK * NPOL_SAMP} series each): use "
-                f"n_chunk dividing nchk (mesh chunk={n_chunk})")
-        if nfft:
-            return pfb_spectra_fused(
-                rows, nfft, ntap, window=window, nout=nout, stokes=stokes,
-                mean=mean, shift=shift, layout="rows", history=history,
-                return_history=return_history, interpret=interpret)
-        if stokes:
-            return baseband2stokes_scrunch_rows_pallas(
-                rows, nout, mean=mean, interpret=interpret)
-        return baseband2power_scrunch_rows_pallas(
-            rows, nout, mean=mean, interpret=interpret)
+        return _rows_body(rows, history, return_history, nfft, ntap, window,
+                          nout, stokes, mean, shift)
 
-    # check_vma=False: pallas_call outputs carry no vma annotations
     if not streaming:
-        return _oneshot_step(mesh, body, P(CHUNK_AXIS), out_spec,
-                             check_vma=False)
-    return _streaming_step(mesh, body, P(CHUNK_AXIS), out_spec, hspec,
-                           check_vma=False)
+        return _oneshot_step(mesh, body, P(CHUNK_AXIS), out_spec)
+    return _streaming_step(mesh, body, P(CHUNK_AXIS), out_spec, hspec)

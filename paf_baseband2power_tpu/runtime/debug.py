@@ -3,7 +3,7 @@
 The reference wraps every CUDA/cuFFT call in safe-call macros that abort on
 error (``cudautil.cuh:9-116``), compiles verbose tracing under ``-DDEBUG``
 (``makefile:1-6``), and profiles via an nvprof launcher (``run.py:13-16``).
-TPU-native equivalents:
+JAX equivalents:
 
   * JAX/XLA surface device errors as exceptions at dispatch/fetch time, so
     the safe-call layer reduces to *semantic* checks: power spectra must be

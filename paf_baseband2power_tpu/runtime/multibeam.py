@@ -4,13 +4,12 @@ The reference serves multiple beams by running disconnected per-beam
 pipelines. Here B beam streams are batched into one SPMD step over a
 ``(beam, time, chunk)`` mesh: beams shard data-parallel, each block's
 partial integrations psum over the time axis, and every beam's spectrum
-lands in its own sink. One program, one dispatch per block row — the
-batching the MXU/VPU wants, impossible in the process-per-beam design.
+lands in its own sink. One program, one dispatch per block row — a
+batching the process-per-beam design cannot do.
 
 Execution discipline matches :class:`~..runtime.pipeline.PowerPipeline`:
 per-beam blocks stay in the 2-D wire layout (the 6-D unpack happens inside
-the jitted step — a 6-D operand at a call boundary costs a relayout copy,
-ops/pallas_power.py), ``depth`` block-rows ride in flight so H2D / compute /
+the jitted step), ``depth`` block-rows ride in flight so H2D / compute /
 fetch overlap, and tiny per-row spectra are stacked on device and fetched
 in batches (``fetch_every``) to amortize the fixed host<->device round trip.
 """

@@ -3,16 +3,18 @@
 The reference scales across hosts by running disconnected per-node
 pipelines partitioned by UDP addressing (``capture.c:570-584``,
 ``paf_capture.c:114-118``) — there is no cross-node backend at all. The
-TPU-native replacement forms one SPMD program over every host in the job:
+replacement forms one SPMD program over every host in the job, one process
+per host driving all of that host's cards:
 
     host k feeder (capture/ring/file/synthetic, local slice only)
         -> jax.make_array_from_process_local_data   (no cross-host copy)
-        -> sharded power step  (psum over time on ICI/DCN)
+        -> sharded power step  (psum over time: NVLink within a host,
+           the network between hosts)
         -> tiny (nbeam, nchan) spectra allgathered; rank 0 sinks them
 
 Slice ownership follows the mesh: host boundaries land on the (beam, time)
 axes (``parallel.distributed.global_mesh`` keeps the chunk axis inside a
-host so its collectives ride ICI), and ``process_block_slice`` tells each
+host), and ``process_block_slice`` tells each
 host's feeder which (beam, frame) range to produce. Ingest therefore needs
 zero cross-host data movement — only the 336-float partials cross hosts,
 exactly the scaling-book recipe for a bandwidth-dominated pipeline.
@@ -68,9 +70,9 @@ class MultihostRunner:
             # the chunk mesh axis carries the series-TP split of the rows
             # layout — pick the largest extent that keeps whole frequency
             # chunks per shard AND divides the local device count, so the
-            # chunk axis provably never straddles a host boundary (it must
-            # stay on ICI; a straddling extent would otherwise fail later
-            # with an opaque slice/assemble shape error)
+            # chunk axis provably never straddles a host boundary (a
+            # straddling extent would otherwise fail later with an opaque
+            # slice/assemble shape error)
             local = jax.local_device_count()
             avail = jax.device_count() // n_beam_mesh
             n_chunk = min(local, avail)
@@ -83,8 +85,8 @@ class MultihostRunner:
         self.slice = process_block_slice(self.mesh, nbeam_total, ndf)
         if device_layout:
             # rows beam-DP: each host feeds whole-frame series-row blocks
-            # for its beams; the production rows kernels run per beam
-            # shard with zero collectives (parallel/sharded.py:
+            # for its beams; the rows steps run per beam shard with zero
+            # collectives (parallel/sharded.py:
             # make_multibeam_rows_step). Time/chunk mesh axes replicate
             # (pure data parallelism — beams >= devices in deployments).
             from jax.sharding import NamedSharding, PartitionSpec as P
@@ -106,11 +108,9 @@ class MultihostRunner:
             waste = self.mesh.shape[TIME_AXIS]
             self.step = make_multibeam_rows_step(
                 self.mesh, nfft=pfb_nfft, ntap=pfb_ntap, nout=nout,
-                stokes=stokes, mean=mean,
-                interpret=jax.default_backend() != "tpu",
-                streaming=self._stateful)
+                stokes=stokes, mean=mean, streaming=self._stateful)
             # input shards beams x series (chunk axis = series-TP; local
-            # to a host, so the split never crosses DCN)
+            # to a host, so the split never crosses the network)
             self.sharding = NamedSharding(self.mesh,
                                           P(BEAM_AXIS, CHUNK_AXIS))
             self.log = open_log(
@@ -141,7 +141,7 @@ class MultihostRunner:
         elif pfb_nfft:
             # fine-channel spectrometer: the overlap-save halo ppermutes
             # over the global time axis, so with host boundaries on time
-            # the FIR history crosses processes over DCN; the cross-BLOCK
+            # the FIR history crosses processes; the cross-BLOCK
             # carry streams through run() (streaming=True)
             from ..parallel.sharded import make_multibeam_pfb_step_2d
 

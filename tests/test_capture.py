@@ -517,8 +517,8 @@ def test_capture_zero_fill_after_ring_wrap():
 def test_capture_device_layout(ring_key):
     """device_layout=True: the host SIMD corner turn places every frame as
     14 per-series 512 B segments — the captured block equals the TFTFP
-    block transposed to the TPU (nseries, ndf, 256-lane) row form, so
-    fine-channel kernels consume it with zero device relayout."""
+    block transposed to the (nseries, ndf, 256-lane) row form, so
+    fine-channel steps consume it with no device corner turn."""
     port_base = _free_ports()
     eng, rc, idf0 = run_capture(ring_key, nframes=NDF,
                                 port_base=port_base, device_layout=True)

@@ -1,4 +1,4 @@
-"""Multi-host runtime tests: real 2-process (DCN-style) execution on CPU.
+"""Multi-host runtime tests: real 2-process execution on CPU.
 
 Two OS processes, 4 virtual devices each, form one 8-device SPMD program
 via jax.distributed — the reference's share-nothing per-node deployment
@@ -261,8 +261,8 @@ def test_two_process_stokes_scrunch(tmp_path):
 
 
 def test_single_process_runner_device_layout():
-    """Rows beam-DP runner: series-row slices through the production rows
-    kernels (interpret mode on the CPU mesh), golden parity per beam."""
+    """Rows beam-DP runner: series-row slices through the rows steps on
+    the CPU mesh, golden parity per beam."""
     from paf_baseband2power_tpu.ops.golden import (
         baseband2stokes_scrunch_golden,
     )

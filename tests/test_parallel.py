@@ -299,7 +299,7 @@ def test_sharded_stokes_scrunch_parity():
 
 def test_multibeam_rows_steps_parity():
     """Beam-parallel device-layout steps: beam-stacked rows blocks run
-    the production rows kernels per beam shard with zero collectives."""
+    the rows steps per beam shard with zero collectives."""
     from paf_baseband2power_tpu.ops import pfb as _pfb
     from paf_baseband2power_tpu.ops.golden import (
         baseband2stokes_scrunch_golden,
@@ -322,7 +322,7 @@ def test_multibeam_rows_steps_parity():
     x = jax.device_put(jnp.asarray(rows), spec)
 
     # power (x tscrunch)
-    step = S.make_multibeam_rows_step(mesh, nout=4, interpret=True)
+    step = S.make_multibeam_rows_step(mesh, nout=4)
     out = np.asarray(step(x))
     assert out.shape == (nbeam, 4, nchk * C.NCHAN_CHK)
     from paf_baseband2power_tpu.ops.golden import (
@@ -333,8 +333,7 @@ def test_multibeam_rows_steps_parity():
             out[b], baseband2power_scrunch_golden(blocks[b], 4), rtol=1e-5)
 
     # Stokes
-    sstep = S.make_multibeam_rows_step(mesh, nout=2, stokes=True,
-                                       interpret=True)
+    sstep = S.make_multibeam_rows_step(mesh, nout=2, stokes=True)
     sout = np.asarray(sstep(x))
     assert sout.shape == (nbeam, 2, 4, nchk * C.NCHAN_CHK)
     for b in range(nbeam):
@@ -343,9 +342,8 @@ def test_multibeam_rows_steps_parity():
                                    rtol=1e-4,
                                    atol=1e-5 * np.abs(want).max())
 
-    # fused fine channels (interpret)
-    pstep = S.make_multibeam_rows_step(mesh, nfft=128, nout=2, stokes=True,
-                                       interpret=True)
+    # fine channels
+    pstep = S.make_multibeam_rows_step(mesh, nfft=128, nout=2, stokes=True)
     pout = np.asarray(pstep(x))
     assert pout.shape == (nbeam, 2, 4, nchk * C.NCHAN_CHK * 128)
     for b in range(nbeam):
@@ -374,19 +372,18 @@ def test_sharded_rows_series_parity():
         mesh, jax.sharding.PartitionSpec(M.CHUNK_AXIS))
     x = jax.device_put(jnp.asarray(rows), spec)
 
-    step = S.make_sharded_rows_step(mesh, nout=4, interpret=True)
+    step = S.make_sharded_rows_step(mesh, nout=4)
     out = np.asarray(step(x))
     np.testing.assert_allclose(
         out, baseband2power_scrunch_golden(block, 4), rtol=1e-5)
 
-    sstep = S.make_sharded_rows_step(mesh, stokes=True, interpret=True)
+    sstep = S.make_sharded_rows_step(mesh, stokes=True)
     sout = np.asarray(sstep(x))
     want = baseband2stokes_golden(block)
     np.testing.assert_allclose(sout[0], want, rtol=1e-4,
                                atol=1e-5 * np.abs(want).max())
 
-    pstep = S.make_sharded_rows_step(mesh, nfft=128, nout=2,
-                                     interpret=True)
+    pstep = S.make_sharded_rows_step(mesh, nfft=128, nout=2)
     pout = np.asarray(pstep(x))
     want = _pfb.pfb_spectra_golden(block, 128, 4, nout=2)
     np.testing.assert_allclose(pout, want, rtol=2e-4,
@@ -412,7 +409,7 @@ def test_multibeam_rows_step_with_series_tp():
     spec = jax.sharding.NamedSharding(
         mesh, jax.sharding.PartitionSpec(M.BEAM_AXIS, M.CHUNK_AXIS))
     x = jax.device_put(jnp.asarray(rows), spec)
-    step = S.make_multibeam_rows_step(mesh, nout=4, interpret=True)
+    step = S.make_multibeam_rows_step(mesh, nout=4)
     out = np.asarray(step(x))
     assert out.shape == (nbeam, 4, nchk * C.NCHAN_CHK)
     for b in range(nbeam):
@@ -568,7 +565,7 @@ def test_sharded_rows_streaming():
     spec = jax.sharding.NamedSharding(
         mesh, jax.sharding.PartitionSpec(M.CHUNK_AXIS))
     step = S.make_sharded_rows_step(mesh, nfft=128, nout=2,
-                                    interpret=True, streaming=True)
+                                    streaming=True)
     p1, h = step(jax.device_put(jnp.asarray(block_to_rows(b1)), spec))
     p2, _ = step(jax.device_put(jnp.asarray(block_to_rows(b2)), spec), h)
     want = _pfb.pfb_spectra_golden(both, 128, 4, nout=4)
@@ -591,7 +588,7 @@ def test_multibeam_rows_streaming():
     spec = jax.sharding.NamedSharding(
         mesh, jax.sharding.PartitionSpec(M.BEAM_AXIS, M.CHUNK_AXIS))
     step = S.make_multibeam_rows_step(mesh, nfft=128, nout=2, stokes=True,
-                                      interpret=True, streaming=True)
+                                      streaming=True)
     x1 = jax.device_put(jnp.asarray(np.stack([block_to_rows(b)
                                               for b in b1])), spec)
     x2 = jax.device_put(jnp.asarray(np.stack([block_to_rows(b)

@@ -122,7 +122,7 @@ def test_chunk_grouped_matches_monolithic():
 @pytest.mark.parametrize("nfft,ntap", [(16, 4), (32, 4), (32, 8), (64, 3),
                                        (128, 4), (128, 3), (256, 2)])
 def test_matmul_method_matches_golden(nfft, ntap):
-    """MXU channelizer (sliding when 128%nfft==0, stacked otherwise)."""
+    """Matmul channelizer (sliding when 128%nfft==0, stacked otherwise)."""
     block = F.synthetic_block(rng=30, ndf=NDF, nchk=NCHK)
     got = np.asarray(pfb.pfb_power(jnp.asarray(block), nfft, ntap,
                                    method="matmul"))
@@ -200,73 +200,88 @@ def test_default_chunk_groups():
 
 
 # --------------------------------------------------------------------------
-# Fused Pallas PFB kernel (ops/pallas_pfb.py, nfft = 128)
+# nfft = 128 (frame-aligned factored FIR + DFT) and the rows layout entry
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("ntap", [3, 4])
-def test_fused_pfb_golden_parity(ntap):
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_power_fused
-
+def test_pfb_128_golden_parity(ntap):
     block = F.synthetic_block(rng=40, ndf=32, nchk=NCHK)
-    got = np.asarray(pfb_power_fused(jnp.asarray(block), 128, ntap,
-                                     interpret=True))
+    got = np.asarray(pfb.pfb_power(jnp.asarray(block), 128, ntap))
     want = pfb.pfb_power_golden(block, 128, ntap)
     np.testing.assert_allclose(got, want, rtol=2e-4)
 
 
-def test_fused_pfb_streaming_history_continuity():
-    """Two blocks with in-kernel history == one double block; the carry
-    matches the XLA path's edge-frame carry."""
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_power_fused
-
+def test_pfb_128_rows_streaming_carry():
+    """Rows streaming over 2 blocks == one double block; the raw int16
+    rows carry normalizes to the wire path's edge-frame carry."""
     b1 = F.synthetic_block(rng=41, ndf=32, nchk=NCHK)
     b2 = F.synthetic_block(rng=42, ndf=32, nchk=NCHK)
     both = np.concatenate([b1, b2], axis=0)
-    p1, h1 = pfb_power_fused(jnp.asarray(b1), interpret=True,
-                             return_history=True)
-    p2, h2 = pfb_power_fused(jnp.asarray(b2), history=h1, interpret=True,
-                             return_history=True)
+    step = pfb.make_streaming_pfb(128, 4, layout="rows")
+    p1, h1 = step(jnp.asarray(F.block_to_rows(b1)), None)
+    p2, h2 = step(jnp.asarray(F.block_to_rows(b2)), h1)
     total = np.asarray(p1) + np.asarray(p2)
     want = pfb.pfb_power_golden(both, 128, 4)
     np.testing.assert_allclose(total, want, rtol=2e-4)
-    # fused carries are raw rows-i16 slices; normalize to compare
     ref = pfb.pfb_history(jnp.asarray(b2), 128, 4)
     np.testing.assert_allclose(
         np.asarray(pfb.history_as_complex(h2, 4, 128)), np.asarray(ref))
 
 
-def test_fused_pfb_agrees_with_xla_path():
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_power_fused
-
+def test_pfb_128_mean_rows_agrees_with_wire():
     block = F.synthetic_block(rng=43, ndf=32, nchk=NCHK)
     a = np.asarray(pfb.pfb_power(jnp.asarray(block), 128, 4, mean=True))
-    b = np.asarray(pfb_power_fused(jnp.asarray(block), 128, 4, mean=True,
-                                   interpret=True))
-    np.testing.assert_allclose(a, b, rtol=1e-4)
+    b = np.asarray(pfb.pfb_power(jnp.asarray(F.block_to_rows(block)), 128,
+                                 4, mean=True, layout="rows"))
+    np.testing.assert_allclose(a, b, rtol=1e-6)
 
 
-def test_fused_pfb_2d_block_and_validation():
-    from paf_baseband2power_tpu.ops import pallas_pfb
-
+def test_pfb_2d_block_and_layout_validation():
     block = F.synthetic_block(rng=44, ndf=32, nchk=NCHK)
     flat = jnp.asarray(block.reshape(32, -1))
-    a = np.asarray(pallas_pfb.pfb_power_fused(flat, interpret=True))
-    b = np.asarray(pallas_pfb.pfb_power_fused(jnp.asarray(block),
-                                              interpret=True))
+    a = np.asarray(pfb.pfb_power(flat, 128))
+    b = np.asarray(pfb.pfb_power(jnp.asarray(block), 128))
     np.testing.assert_allclose(a, b)
+    with pytest.raises(ValueError):                  # wire block as rows
+        pfb.pfb_power(flat, 128, layout="rows")
     with pytest.raises(ValueError):
-        pallas_pfb.pfb_power_fused(jnp.asarray(block), nfft=64,
-                                   interpret=True)
+        pfb.pfb_power(flat, 128, layout="bogus")
+
+
+@pytest.mark.parametrize("nfft", [128, 1024])
+@pytest.mark.parametrize("stokes", [False, True])
+def test_pfb_rows_entry_matches_wire(nfft, stokes):
+    """Series rows hold the complex series _block_to_series builds: the
+    rows entry of pfb_power / pfb_spectra gives the wire layout's output
+    and, streamed, its carry."""
+    b1 = F.synthetic_block(rng=45, ndf=64, nchk=NCHK)
+    b2 = F.synthetic_block(rng=46, ndf=64, nchk=NCHK)
+    if stokes:
+        steps = {lay: pfb.make_streaming_spectra(nfft, 4, nout=2,
+                                                 stokes=True, layout=lay)
+                 for lay in ("wire", "rows")}
+    else:
+        steps = {lay: pfb.make_streaming_pfb(nfft, 4, layout=lay)
+                 for lay in ("wire", "rows")}
+    outs = {}
+    for lay, conv in (("wire", lambda b: b), ("rows", F.block_to_rows)):
+        o1, h = steps[lay](jnp.asarray(conv(b1)), None)
+        o2, h = steps[lay](jnp.asarray(conv(b2)), h)
+        outs[lay] = (np.asarray(o1), np.asarray(o2),
+                     np.asarray(pfb.history_as_complex(h, 4, nfft)))
+    for w, r in zip(outs["wire"], outs["rows"]):
+        np.testing.assert_allclose(r, w, rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(w).max()))
 
 
 def test_xla_paths_accept_rows_i16_carry():
-    """Cross-format safety: the streaming factories dispatch per traced
-    shape between the fused kernel (raw rows-i16 carry) and the XLA
-    formulations — the XLA paths must consume the raw carry and match
-    the canonical complex one exactly (history_as_complex)."""
+    """Cross-format safety: a rows-layout stream's raw rows-i16 carry
+    feeds the wire-layout paths too (a stream may change layout between
+    blocks) and matches the canonical complex one exactly
+    (history_as_complex)."""
     b1 = F.synthetic_block(rng=61, ndf=NDF, nchk=NCHK)
     b2 = F.synthetic_block(rng=62, ndf=NDF, nchk=NCHK)
-    # the raw carry as the fused kernels produce it: trailing frame rows
+    # the raw carry as the rows layout produces it: trailing frame rows
     nfft = 128  # frame-aligned halo needs nfft multiple of NSAMP_DF
     halo_ndf = (NTAP - 1) * nfft // C.NSAMP_DF
     rows_tail = jnp.asarray(np.ascontiguousarray(

@@ -80,6 +80,7 @@ def test_cli_synthetic_input(tmp_path, capsys):
     stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert stats["nblocks"] == 3
     assert stats["samples_per_sec"] > 0
+    assert len(stats["block_seconds"]) == 3
 
 
 def test_cli_mean_mode(tmp_path):
@@ -211,7 +212,7 @@ def test_composed_modes_cli(tmp_path):
 def test_device_layout_file_replay(tmp_path):
     """A recording made from a device-layout ring (ORDER SERIES header)
     auto-detects as series rows; the PFB step consumes rows directly
-    (interpret mode off-TPU) with golden parity. Wire-order synthetic
+    with golden parity. Wire-order synthetic
     input with --device-layout is rejected instead of silently
     misinterpreted."""
     from paf_baseband2power_tpu.io.dada import DadaFileWriter, baseband_header

@@ -82,3 +82,60 @@ def test_power_jit_cache():
     n0 = P.baseband2power_2d._cache_size()
     P.baseband2power_2d(x2d + 1)
     assert P.baseband2power_2d._cache_size() == n0
+
+
+# ---------------------------------------------------------------------------
+# 2-D wire device layout (ndf, nchk*3584): the production power step
+# ---------------------------------------------------------------------------
+
+def test_wire_2d_layout_is_view(small_block):
+    b2 = small_block.reshape(32, -1)
+    assert b2.shape == (32, C.NCHK_NIC * C.LANES_PER_CHUNK)
+    assert np.shares_memory(b2, small_block)   # zero copy
+
+
+def test_power_2d_matches_golden(small_block):
+    got = np.asarray(P.baseband2power_2d(jnp.asarray(
+        small_block.reshape(32, -1))))
+    assert got.shape == (C.NCHAN,)
+    np.testing.assert_allclose(got, baseband2power_golden(small_block),
+                               rtol=1e-5)
+
+
+def test_power_2d_mean(small_block):
+    got = np.asarray(P.baseband2power_2d(
+        jnp.asarray(small_block.reshape(32, -1)), mean=True))
+    np.testing.assert_allclose(
+        got, baseband2power_golden(small_block, mean=True), rtol=1e-5)
+
+
+def test_power_2d_from_ring_bytes(small_block):
+    """Ring-block bytes viewed as the 2-D layout (what RingSource and
+    FileSource hand the pipeline) integrate like the canonical block."""
+    raw = F.block_to_bytes(small_block)
+    b2 = np.frombuffer(raw, dtype="<i2").reshape(32, -1)
+    got = np.asarray(P.baseband2power_2d(jnp.asarray(b2)))
+    np.testing.assert_allclose(got, baseband2power_golden(small_block),
+                               rtol=1e-5)
+
+
+def test_power_2d_small_chunk_counts():
+    """Reduced-geometry blocks (nchk not 48) still work."""
+    block = F.synthetic_block(rng=5, ndf=16, nchk=4)
+    got = np.asarray(P.baseband2power_2d(jnp.asarray(block.reshape(16, -1))))
+    np.testing.assert_allclose(got, baseband2power_golden(block), rtol=1e-5)
+
+
+def test_power_2d_rejects_bad_lanes():
+    with pytest.raises(ValueError):
+        P.baseband2power_2d(jnp.zeros((16, 100), jnp.int16))
+    with pytest.raises(ValueError):
+        P.baseband2power_scrunch_2d(
+            jnp.zeros((16, C.LANES_PER_CHUNK + 1), jnp.int16), 2)
+
+
+def test_power_2d_any_frame_count():
+    """No tiling constraint on the frame axis: 12 frames integrate."""
+    block = F.synthetic_block(rng=6, ndf=12, nchk=2)
+    got = np.asarray(P.baseband2power_2d(jnp.asarray(block.reshape(12, -1))))
+    np.testing.assert_allclose(got, baseband2power_golden(block), rtol=1e-5)

@@ -16,10 +16,11 @@ from paf_baseband2power_tpu.ops.golden import (
     baseband2power_golden,
     baseband2power_scrunch_golden,
 )
-from paf_baseband2power_tpu.ops.pallas_power import (
-    baseband2power_scrunch_pallas,
+from paf_baseband2power_tpu.ops.frame import block_to_rows
+from paf_baseband2power_tpu.ops.power import (
+    baseband2power_scrunch_2d,
+    baseband2power_scrunch_rows,
 )
-from paf_baseband2power_tpu.ops.power import baseband2power_scrunch_2d
 
 NDF, NCHK = 32, 8
 NCHAN = NCHK * C.NCHAN_CHK
@@ -55,28 +56,29 @@ def test_scrunch_xla_golden_parity(nout):
 
 
 @pytest.mark.parametrize("nout", [1, 2, 4, 8, 16, 32])
-def test_scrunch_pallas_golden_parity(nout):
-    """Covers the 8-row accumulator path (small nout) and the pure-store
-    path (whole windows per tile: nout=8,16,32 here)."""
+def test_scrunch_rows_golden_parity(nout):
+    """Rows-layout tscrunch (series rows, one window per frame range)."""
     block = F.synthetic_block(rng=3, ndf=NDF, nchk=NCHK)
     want = baseband2power_scrunch_golden(block, nout)
-    got = np.asarray(baseband2power_scrunch_pallas(
-        jnp.asarray(block.reshape(NDF, -1)), nout, interpret=True))
+    got = np.asarray(baseband2power_scrunch_rows(
+        jnp.asarray(block_to_rows(block)), nout))
+    assert got.shape == (nout, NCHAN)
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-@pytest.mark.parametrize("nout", [16, 24, 64])
-def test_scrunch_pallas_store_path_8frame_windows(nout):
-    """Pure-store path on a taller block: 8-frame windows (nout=16,
-    wpt=16) and 2-frame windows (nout=64, wpt=32)."""
+@pytest.mark.parametrize("nout", [16, 32, 64])
+def test_scrunch_short_windows_taller_block(nout):
+    """Short windows on a taller block (8-, 4- and 2-frame windows), both
+    layouts, mean mode."""
     ndf = 128
-    if ndf % nout:
-        pytest.skip("nout must divide ndf")
     block = F.synthetic_block(rng=5, ndf=ndf, nchk=NCHK)
-    want = baseband2power_scrunch_golden(block, nout)
-    got = np.asarray(baseband2power_scrunch_pallas(
-        jnp.asarray(block.reshape(ndf, -1)), nout, interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-5)
+    want = baseband2power_scrunch_golden(block, nout, mean=True)
+    wire = np.asarray(baseband2power_scrunch_2d(
+        jnp.asarray(block.reshape(ndf, -1)), nout, mean=True))
+    rows = np.asarray(baseband2power_scrunch_rows(
+        jnp.asarray(block_to_rows(block)), nout, mean=True))
+    np.testing.assert_allclose(wire, want, rtol=1e-5)
+    np.testing.assert_allclose(rows, want, rtol=1e-5)
 
 
 def test_scrunch_validation():

@@ -1,8 +1,7 @@
 """Composed fine-channel detection: PFB x tscrunch waterfall, PFB x Stokes.
 
-Parity chain: float64 golden (pfb_spectra_golden) -> XLA generic
-(pfb_spectra) -> fused Pallas kernel (pfb_spectra_fused, interpret mode on
-CPU). Reference contract: the planned cuFFT channelizer
+Parity chain: float64 golden (pfb_spectra_golden) -> XLA (pfb_spectra) on
+the wire layout and on series rows. Reference contract: the planned cuFFT channelizer
 (/root/reference/makefile:27, kernel.cuh:4-7) composed with the detect-and-
 average usage string (paf_baseband2power.cu:20).
 """
@@ -147,50 +146,39 @@ def test_streaming_spectra_accepts_2d_layout():
 
 
 # --------------------------------------------------------------------------
-# Generalized fused Pallas kernel (interpret mode on CPU)
+# The production nfft sizes (128 ... 1024), auto method
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("nout,stokes", [(1, False), (2, False), (1, True),
                                          (2, True)])
-def test_fused_spectra_128_matches_golden(nout, stokes):
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_128_matches_golden(nout, stokes):
     block = F.synthetic_block(rng=70, ndf=32, nchk=NCHK)
-    got = np.asarray(pfb_spectra_fused(jnp.asarray(block), 128, NTAP,
-                                       nout=nout, stokes=stokes,
-                                       interpret=True))
+    got = np.asarray(pfb.pfb_spectra(jnp.asarray(block), 128, NTAP,
+                                     nout=nout, stokes=stokes))
     want = pfb.pfb_spectra_golden(block, 128, NTAP, nout=nout, stokes=stokes)
     assert_close(got, want)
 
 
 @pytest.mark.parametrize("nfft,ndf", [(256, 16), (512, 32), (1024, 64)])
-def test_fused_spectra_large_nfft_matches_golden(nfft, ndf):
-    """Cooley-Tukey split (N1-point lane-block DFT + twiddle-folded 256x256
-    operators) vs the float64 golden at every supported size."""
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_large_nfft_matches_golden(nfft, ndf):
+    """Stacked matmul (256) and grouped fft (512, 1024) vs the golden."""
     block = F.synthetic_block(rng=71, ndf=ndf, nchk=1)
-    got = np.asarray(pfb_spectra_fused(jnp.asarray(block), nfft, NTAP,
-                                       interpret=True))
+    got = np.asarray(pfb.pfb_spectra(jnp.asarray(block), nfft, NTAP))
     want = pfb.pfb_spectra_golden(block, nfft, NTAP)
     assert_close(got, want)
 
 
-def test_fused_spectra_large_nfft_stokes_waterfall():
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_large_nfft_stokes_waterfall():
     block = F.synthetic_block(rng=72, ndf=32, nchk=1)
-    got = np.asarray(pfb_spectra_fused(jnp.asarray(block), 256, NTAP,
-                                       nout=2, stokes=True, interpret=True))
+    got = np.asarray(pfb.pfb_spectra(jnp.asarray(block), 256, NTAP,
+                                     nout=2, stokes=True))
     want = pfb.pfb_spectra_golden(block, 256, NTAP, nout=2, stokes=True)
     assert_close(got, want)
 
 
-def test_fused_spectra_tone_localization_1024():
-    """A tone at fine channel k0 of a 1024-channelizer lands at k0 after
-    the (k1, k2) reorder -- catches any CT output-ordering mistake."""
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_tone_localization_1024():
+    """A tone at fine channel k0 of a 1024-channelizer lands at k0 (after
+    the fftshift) in both layouts."""
     nfft, ndf, k0 = 1024, 64, 137
     nsamp = ndf * C.NSAMP_DF
     n = np.arange(nsamp)
@@ -199,27 +187,28 @@ def test_fused_spectra_tone_localization_1024():
     series = tone.reshape(ndf, C.NSAMP_DF)
     block[:, 0, :, 2, 0, 0] = np.round(series.real)
     block[:, 0, :, 2, 0, 1] = np.round(series.imag)
-    got = np.asarray(pfb_spectra_fused(jnp.asarray(block), nfft, NTAP,
-                                       interpret=True))
-    grid = got.reshape(1, C.NCHAN_CHK, nfft)
-    hot = grid[0, 2]
-    assert int(hot.argmax()) == (k0 + nfft // 2) % nfft
-    assert grid.sum() - hot.sum() < 1e-5 * hot.sum()
+    for x, layout in ((block, "wire"), (F.block_to_rows(block), "rows")):
+        got = np.asarray(pfb.pfb_spectra(jnp.asarray(x), nfft, NTAP,
+                                         layout=layout))
+        grid = got.reshape(1, C.NCHAN_CHK, nfft)
+        hot = grid[0, 2]
+        assert int(hot.argmax()) == (k0 + nfft // 2) % nfft
+        assert grid.sum() - hot.sum() < 1e-5 * hot.sum()
 
 
 @pytest.mark.parametrize("nfft,ndf,stokes", [(128, 32, False),
                                              (256, 16, True)])
-def test_fused_spectra_streaming_continuity(nfft, ndf, stokes):
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_rows_streaming_continuity(nfft, ndf, stokes):
+    """Rows layout over 2 blocks: the raw int16 rows carry gives the
+    one-shot golden over the concatenation, group by group."""
     b1 = F.synthetic_block(rng=73, ndf=ndf, nchk=NCHK)
     b2 = F.synthetic_block(rng=74, ndf=ndf, nchk=NCHK)
     both = np.concatenate([b1, b2], axis=0)
-    p1, h1 = pfb_spectra_fused(jnp.asarray(b1), nfft, NTAP, stokes=stokes,
-                               return_history=True, interpret=True)
-    p2, h2 = pfb_spectra_fused(jnp.asarray(b2), nfft, NTAP, stokes=stokes,
-                               history=h1, return_history=True,
-                               interpret=True)
+    step = pfb.make_streaming_spectra(nfft, NTAP, stokes=stokes,
+                                      layout="rows")
+    p1, h1 = step(jnp.asarray(F.block_to_rows(b1)), None)
+    p2, h2 = step(jnp.asarray(F.block_to_rows(b2)), h1)
+    assert h2.dtype == jnp.int16
     want = pfb.pfb_spectra_golden(both, nfft, NTAP, nout=2, stokes=stokes)
     assert_close(np.asarray(p1), want[:1])
     assert_close(np.asarray(p2), want[1:])
@@ -228,43 +217,37 @@ def test_fused_spectra_streaming_continuity(nfft, ndf, stokes):
         np.asarray(pfb.history_as_complex(h2, NTAP, nfft)), np.asarray(ref))
 
 
-def test_fused_spectra_agrees_with_xla_and_2d():
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_mean_2d_layout_agrees():
     block = F.synthetic_block(rng=75, ndf=32, nchk=NCHK)
-    a = np.asarray(pfb_spectra_fused(jnp.asarray(block), 128, NTAP, nout=2,
-                                     stokes=True, mean=True, interpret=True))
+    a = np.asarray(pfb.pfb_spectra(jnp.asarray(block), 128, NTAP, nout=2,
+                                   stokes=True, mean=True))
     b = np.asarray(pfb.pfb_spectra(jnp.asarray(block), 128, NTAP, nout=2,
-                                   stokes=True, mean=True, method="matmul"))
+                                   stokes=True, mean=True, method="fft"))
     np.testing.assert_allclose(a, b, rtol=2e-4,
                                atol=1e-5 * float(np.abs(b).max()))
-    c = np.asarray(pfb_spectra_fused(jnp.asarray(block.reshape(32, -1)),
-                                     128, NTAP, nout=2, stokes=True,
-                                     mean=True, interpret=True))
+    c = np.asarray(pfb.pfb_spectra(jnp.asarray(block.reshape(32, -1)),
+                                   128, NTAP, nout=2, stokes=True, mean=True))
     np.testing.assert_allclose(a, c)
 
 
-def test_fused_spectra_validation():
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_validation():
     block = jnp.asarray(F.synthetic_block(rng=76, ndf=32, nchk=1))
     with pytest.raises(ValueError):
-        pfb_spectra_fused(block, 192, interpret=True)      # unsupported nfft
+        pfb.pfb_spectra(block, 128, nout=3)              # not a divisor
     with pytest.raises(ValueError):
-        pfb_spectra_fused(block, 128, nout=3, interpret=True)  # not divisor
+        pfb.pfb_spectra(block, 128, nout=16)             # wpg < ntap-1
     with pytest.raises(ValueError):
-        pfb_spectra_fused(block, 128, nout=8, interpret=True)  # wpg < 8
+        pfb.pfb_spectra(block, 128, layout="bogus")
+    with pytest.raises(ValueError):                      # wire as rows
+        pfb.pfb_spectra(block.reshape(32, -1), 128, layout="rows")
 
 
-def test_fused_spectra_fold_rows_path():
-    """High-nout waterfall (ngrp>=8 -> one-row-per-spectrum stores)."""
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_high_nout_waterfall():
+    """High-nout waterfall (8 spectra of 4 windows each)."""
     block = F.synthetic_block(rng=77, ndf=64, nchk=1)
     for stokes in (False, True):
-        got = np.asarray(pfb_spectra_fused(jnp.asarray(block), 128, NTAP,
-                                           nout=8, stokes=stokes,
-                                           interpret=True))
+        got = np.asarray(pfb.pfb_spectra(jnp.asarray(block), 128, NTAP,
+                                         nout=8, stokes=stokes))
         want = pfb.pfb_spectra_golden(block, 128, NTAP, nout=8,
                                       stokes=stokes)
         assert_close(got, want)
@@ -297,24 +280,21 @@ def test_stokes_scrunch_golden_and_xla():
     assert_close(got_m, want_m, rtol=1e-4)
 
 
-def test_stokes_scrunch_pallas_matches_golden():
+def test_stokes_scrunch_2d_short_windows():
     from paf_baseband2power_tpu.ops.golden import (
         baseband2stokes_scrunch_golden,
     )
-    from paf_baseband2power_tpu.ops.pallas_power import (
-        baseband2stokes_scrunch_pallas,
-    )
+    from paf_baseband2power_tpu.ops.power import baseband2stokes_scrunch_2d
 
     block = F.synthetic_block(rng=81, ndf=32, nchk=NCHK)
     for nout, mean in ((2, False), (8, True)):
-        got = np.asarray(baseband2stokes_scrunch_pallas(
-            jnp.asarray(block.reshape(32, -1)), nout, mean=mean,
-            interpret=True))
+        got = np.asarray(baseband2stokes_scrunch_2d(
+            jnp.asarray(block.reshape(32, -1)), nout, mean=mean))
         want = baseband2stokes_scrunch_golden(block, nout, mean=mean)
         assert_close(got, want, rtol=1e-4)
     with pytest.raises(ValueError):
-        baseband2stokes_scrunch_pallas(jnp.asarray(block.reshape(32, -1)),
-                                       3, interpret=True)  # odd nout
+        baseband2stokes_scrunch_2d(jnp.asarray(block.reshape(32, -1)),
+                                   3)  # 3 does not divide 32 frames
 
 
 def test_mean_zero_window_group_is_zero_not_nan():
@@ -332,18 +312,20 @@ def test_mean_zero_window_group_is_zero_not_nan():
                                atol=1e-5 * np.abs(want).max())
 
 
-def test_fused_geometry_predicate():
-    """Streaming factories fall back to XLA for shapes the fused kernel's
-    tiling rejects (per traced shape, TPU only); the predicate is the
-    contract."""
-    ok = pfb._fused_geometry_ok
-    assert ok(8192, 128, 4, 1)          # full geometry
-    assert ok(8192, 1024, 4, 64)
-    assert not ok(8, 256, 4, 1)         # nrow=4 not a multiple of 8
-    assert not ok(8191, 128, 4, 1)      # nrow % nout fine but wpg % 8 != 0
-    assert not ok(64, 128, 4, 16)       # wpg=4 < 8
-    assert not ok(100, 1024, 4, 1)      # ndf % (nfft/128) != 0
-    assert not ok(8192, 128, 9, 1)      # ntap out of range
+def test_streaming_factories_take_both_layouts():
+    """One step object per mode x layout: the factories forward ``layout``
+    and the rows step returns the raw int16 carry, the wire step the
+    complex series carry."""
+    block = F.synthetic_block(rng=78, ndf=32, nchk=NCHK)
+    for layout, x in (("wire", block), ("rows", F.block_to_rows(block))):
+        _, hs = pfb.make_streaming_spectra(128, NTAP, nout=2,
+                                           layout=layout)(jnp.asarray(x),
+                                                          None)
+        _, hp = pfb.make_streaming_pfb(128, NTAP, layout=layout)(
+            jnp.asarray(x), None)
+        want = jnp.int16 if layout == "rows" else jnp.complex64
+        assert hs.dtype == want and hp.dtype == want
+        assert hs.shape == hp.shape
 
 
 # --------------------------------------------------------------------------
@@ -357,38 +339,32 @@ def _to_rows(block):
             .reshape(nchk * 14, ndf, 256))
 
 
-def test_fused_spectra_rows_layout_matches_wire():
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_rows_layout_matches_wire():
     block = F.synthetic_block(rng=95, ndf=32, nchk=NCHK)
     rows = _to_rows(block)
     for nout, stokes in ((1, False), (2, True)):
-        a = np.asarray(pfb_spectra_fused(jnp.asarray(block), 128, NTAP,
-                                         nout=nout, stokes=stokes,
-                                         interpret=True))
-        b = np.asarray(pfb_spectra_fused(jnp.asarray(rows), 128, NTAP,
-                                         nout=nout, stokes=stokes,
-                                         layout="rows", interpret=True))
+        a = np.asarray(pfb.pfb_spectra(jnp.asarray(block), 128, NTAP,
+                                       nout=nout, stokes=stokes))
+        b = np.asarray(pfb.pfb_spectra(jnp.asarray(rows), 128, NTAP,
+                                       nout=nout, stokes=stokes,
+                                       layout="rows"))
         np.testing.assert_allclose(b, a, rtol=1e-6)
         # 2-D flattened rows too
-        c = np.asarray(pfb_spectra_fused(
+        c = np.asarray(pfb.pfb_spectra(
             jnp.asarray(rows.reshape(NCHK * 14, -1)), 128, NTAP, nout=nout,
-            stokes=stokes, layout="rows", interpret=True))
+            stokes=stokes, layout="rows"))
         np.testing.assert_allclose(c, a, rtol=1e-6)
 
 
-def test_fused_spectra_rows_streaming_history():
-    from paf_baseband2power_tpu.ops.pallas_pfb import pfb_spectra_fused
-
+def test_xla_spectra_rows_streaming_history():
     b1 = F.synthetic_block(rng=96, ndf=32, nchk=NCHK)
     b2 = F.synthetic_block(rng=97, ndf=32, nchk=NCHK)
     both = np.concatenate([b1, b2], axis=0)
-    p1, h1 = pfb_spectra_fused(jnp.asarray(_to_rows(b1)), 128, NTAP,
-                               layout="rows", return_history=True,
-                               interpret=True)
-    p2, h2 = pfb_spectra_fused(jnp.asarray(_to_rows(b2)), 128, NTAP,
-                               history=h1, layout="rows",
-                               return_history=True, interpret=True)
+    p1, h1 = pfb.pfb_spectra(jnp.asarray(_to_rows(b1)), 128, NTAP,
+                             layout="rows", return_history=True)
+    p2, h2 = pfb.pfb_spectra(jnp.asarray(_to_rows(b2)), 128, NTAP,
+                             history=h1, layout="rows", return_history=True)
+    assert h1.shape == (NCHK * 14, 3, 256)
     want = pfb.pfb_spectra_golden(both, 128, NTAP, nout=2)
     assert_close(np.asarray(p1), want[:1])
     assert_close(np.asarray(p2), want[1:])
@@ -414,53 +390,44 @@ def test_power_scrunch_rows_matches_golden():
     np.testing.assert_allclose(got4, want4, rtol=1e-5)
 
 
-def test_stokes_rows_pallas_matches_golden():
-    """Rows-layout Stokes (x tscrunch): the device-layout polarimetry
-    path (Re(xy*) = plain elementwise sum in the interleaved form)."""
+@pytest.mark.parametrize("nout", [1, 2, 8])
+def test_stokes_rows_matches_golden(nout):
+    """Rows-layout Stokes (x tscrunch): adjacent x/y series rows,
+    interleaved re/im lanes, vs the wire-block golden."""
     from paf_baseband2power_tpu.ops.golden import (
-        baseband2stokes_golden,
         baseband2stokes_scrunch_golden,
     )
-    from paf_baseband2power_tpu.ops.pallas_power import (
-        baseband2stokes_scrunch_rows_pallas,
-    )
+    from paf_baseband2power_tpu.ops.power import baseband2stokes_scrunch_rows
 
     block = F.synthetic_block(rng=105, ndf=32, nchk=NCHK)
     rows2d = jnp.asarray(_to_rows(block).reshape(NCHK * 14, -1))
-    got1 = np.asarray(baseband2stokes_scrunch_rows_pallas(
-        rows2d, 1, interpret=True))
-    want1 = baseband2stokes_golden(block)
-    assert_close(got1[0], want1, rtol=1e-4)
-    for nout in (2, 4):
-        got = np.asarray(baseband2stokes_scrunch_rows_pallas(
-            rows2d, nout, mean=True, interpret=True))
-        want = baseband2stokes_scrunch_golden(block, nout, mean=True)
+    for mean in (False, True):
+        got = np.asarray(baseband2stokes_scrunch_rows(rows2d, nout,
+                                                      mean=mean))
+        want = baseband2stokes_scrunch_golden(block, nout, mean=mean)
+        assert got.shape == (nout, 4, NCHK * C.NCHAN_CHK)
         assert_close(got, want, rtol=1e-4)
 
 
-def test_power_rows_pallas_matches_golden():
-    """Rows-layout Pallas power (x tscrunch): the device-layout plain
-    power path (tiles of 8 series x R frames on the natural tiling)."""
+def test_power_rows_3d_matches_golden():
+    """Rows-layout power (x tscrunch) on the 3-D device form, and the 2-D
+    flattening gives the same records."""
     from paf_baseband2power_tpu.ops.golden import (
         baseband2power_golden,
         baseband2power_scrunch_golden,
     )
-    from paf_baseband2power_tpu.ops.pallas_power import (
-        baseband2power_scrunch_rows_pallas,
-    )
+    from paf_baseband2power_tpu.ops.power import baseband2power_scrunch_rows
 
     block = F.synthetic_block(rng=121, ndf=32, nchk=4)
     rows3 = jnp.asarray(_to_rows(block))
-    got1 = np.asarray(baseband2power_scrunch_rows_pallas(
-        rows3, 1, interpret=True))
+    got1 = np.asarray(baseband2power_scrunch_rows(rows3, 1))
     np.testing.assert_allclose(got1[0], baseband2power_golden(block),
                                rtol=1e-5)
-    got4 = np.asarray(baseband2power_scrunch_rows_pallas(
-        rows3, 4, mean=True, interpret=True))
+    got4 = np.asarray(baseband2power_scrunch_rows(rows3, 4, mean=True))
     want4 = baseband2power_scrunch_golden(block, 4, mean=True)
     np.testing.assert_allclose(got4, want4, rtol=1e-5)
-    # 2-D flattening accepted
-    got2d = np.asarray(baseband2power_scrunch_rows_pallas(
-        jnp.asarray(_to_rows(block).reshape(4 * 14, -1)), 1,
-        interpret=True))
+    got2d = np.asarray(baseband2power_scrunch_rows(
+        jnp.asarray(_to_rows(block).reshape(4 * 14, -1)), 1))
     np.testing.assert_allclose(got2d, got1)
+    with pytest.raises(ValueError):
+        baseband2power_scrunch_rows(rows3, 3)     # 3 does not divide 32

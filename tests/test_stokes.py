@@ -37,24 +37,24 @@ def test_stokes_jax_golden_parity():
         got_m, baseband2stokes_golden(block, mean=True), rtol=1e-5, atol=1e-4)
 
 
-def test_stokes_pallas_golden_parity():
-    """Fused Pallas Stokes kernel (interpret mode on CPU) vs golden.
+def test_stokes_rows_golden_parity():
+    """Rows-layout Stokes (adjacent x/y series rows) vs golden.
 
     Q tolerance is cancellation-limited: xx - yy subtracts two O(NI)
-    f32 sums, so ~1e-4 relative is the f32 floor (the XLA path has the
+    f32 sums, so ~1e-4 relative is the f32 floor (the wire path has the
     same floor); I/U/V carry no cancellation and sit at ~1e-7.
     """
-    from paf_baseband2power_tpu.ops.pallas_power import baseband2stokes_pallas
+    from paf_baseband2power_tpu.ops.frame import block_to_rows
+    from paf_baseband2power_tpu.ops.power import baseband2stokes_scrunch_rows
 
     block = F.synthetic_block(rng=2, ndf=16, nchk=8)
+    rows = jnp.asarray(block_to_rows(block))
     want = baseband2stokes_golden(block)
-    got = np.asarray(baseband2stokes_pallas(
-        jnp.asarray(block.reshape(16, -1)), interpret=True))
+    got = np.asarray(baseband2stokes_scrunch_rows(rows, 1))[0]
     assert got.shape == (4, NCHAN)
     np.testing.assert_allclose(got, want, rtol=5e-4, atol=1e-2)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
-    got_m = np.asarray(baseband2stokes_pallas(
-        jnp.asarray(block.reshape(16, -1)), mean=True, interpret=True))
+    got_m = np.asarray(baseband2stokes_scrunch_rows(rows, 1, mean=True))[0]
     np.testing.assert_allclose(
         got_m, baseband2stokes_golden(block, mean=True), rtol=5e-4, atol=1e-3)
 

@@ -24,9 +24,9 @@ Only when every phase passed is the last line of stdout
 Usage:
     python chip_smoke.py                 # phases a-d on one card
     python chip_smoke.py --four-cards    # phase e on four cards
-    python chip_smoke.py --phase a,b     # selected phases
-Rehearsal of one phase's child at a reduced geometry on the CPU:
-    JAX_PLATFORMS=cpu python chip_smoke.py --child modes --ndf 64 --nchk 2
+The parent always runs the full geometry. Rehearsal of one phase's child at
+a reduced geometry on the CPU (prints no result line):
+    JAX_PLATFORMS=cpu python chip_smoke.py --child modes --ndf 2048 --nchk 2
 """
 
 from __future__ import annotations
@@ -42,33 +42,31 @@ import sys
 import tempfile
 import threading
 import time
+import uuid
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "paf_baseband2power_tpu"
 NDF, NCHK = 8192, 48          # full block geometry
 HBM_PEAK = {"NVIDIA H100 80GB HBM3": 3.35e12}   # bytes/s, NVIDIA data sheet
-PHASES = {"a": "device", "b": "modes", "c": "cli", "d": "gpu_tests"}
+ONE_CARD_PHASES = ["device", "modes", "cli", "gpu_tests"]
 DEADLINE = {"device": 300, "modes": 700, "cli": 800, "gpu_tests": 500,
             "four": 1100}
 DIRECT_RTOL, DIRECT_ATOL = 1e-5, 1e-6     # atol x max|golden|
 FINE_RTOL, FINE_ATOL = 2e-4, 1e-5         # atol x max|golden|
+# Fine modes must also stay under this share of their bound: the explicit
+# bf16x3 matmuls read ~0.01 of it on the H100, implicit TF32 0.3-0.8, so a
+# matmul that fell back to TF32 fails here and not only in a CPU-side scan.
+FINE_LIMIT = 0.1
 
 
 # --------------------------------------------------------------------------
 # parent: phase selection and child processes (no JAX here)
 # --------------------------------------------------------------------------
 
-def select_phases(phase_arg: str | None, four_cards: bool) -> list[str]:
-    """Child names to run: ``four`` alone with ``--four-cards``, else the
-    selected (default: all) one-card phases in order."""
-    if four_cards:
-        return ["four"]
-    letters = (phase_arg or "".join(PHASES)).replace(",", "")
-    unknown = set(letters) - set(PHASES)
-    if unknown:
-        raise ValueError(f"unknown phase(s) {sorted(unknown)}; "
-                         f"choose from {sorted(PHASES)}")
-    return [PHASES[p] for p in sorted(set(letters))]
+def select_phases(four_cards: bool) -> list[str]:
+    """Child names to run: ``four`` alone with ``--four-cards``, else every
+    one-card phase in order."""
+    return ["four"] if four_cards else list(ONE_CARD_PHASES)
 
 
 def result_line(device: dict) -> str:
@@ -90,11 +88,12 @@ def card_lines() -> list[str]:
     return lines
 
 
-def run_child(name: str, argv: list[str], env: dict) -> tuple[int, dict]:
-    """Run one phase's child, relaying its output; returns (rc, device)
-    where ``device`` is the last ``device: {...}`` line it printed. The
-    child's whole process group is killed at its deadline and at exit."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--child", name] + argv
+def run_child(name: str, env: dict) -> tuple[int, dict]:
+    """Run one phase's child at the full geometry, relaying its output;
+    returns (rc, device) where ``device`` is the last ``device: {...}``
+    line it printed. The child's whole process group is killed at its
+    deadline and at exit."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", name]
     p = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True,
                          start_new_session=True)
@@ -129,30 +128,34 @@ def _kill_group(p: subprocess.Popen) -> None:
         pass
 
 
+def child_main(argv: list[str]) -> int:
+    """One phase's child: ``--child NAME [--ndf N --nchk N]``. Only the
+    child takes a geometry, for a reduced rehearsal on the CPU."""
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --child")
+    ap.add_argument("name", choices=sorted(CHILDREN))
+    ap.add_argument("--ndf", type=int, default=NDF)
+    ap.add_argument("--nchk", type=int, default=NCHK)
+    args = ap.parse_args(argv)
+    return CHILDREN[args.name](args)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--child"]:
+        return child_main(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--four-cards", action="store_true",
                     help="run only the four-card phase (needs 4 GPUs)")
-    ap.add_argument("--phase", default=None,
-                    help="comma-separated subset of a,b,c,d")
-    ap.add_argument("--child", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--ndf", type=int, default=NDF,
-                    help="frames per block (reduced only for rehearsal)")
-    ap.add_argument("--nchk", type=int, default=NCHK,
-                    help="chunks per block (reduced only for rehearsal)")
     args = ap.parse_args(argv)
-    if args.child:
-        return CHILDREN[args.child](args)
 
     if not os.path.isdir(os.path.join(REPO, PACKAGE)):
         print(f"chip_smoke: {PACKAGE}/ not found beside {__file__}",
               file=sys.stderr)
         return 2
+    names = select_phases(args.four_cards)
     try:
-        names = select_phases(args.phase, args.four_cards)
         cards = card_lines()
-    except (ValueError, RuntimeError, OSError,
-            subprocess.SubprocessError) as e:
+    except (RuntimeError, OSError, subprocess.SubprocessError) as e:
         print(f"chip_smoke: {e}", file=sys.stderr)
         return 2
     for line in cards:
@@ -161,11 +164,10 @@ def main(argv=None) -> int:
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["SMOKE_CARD"] = cards[0]
     env.setdefault("JAX_PLATFORMS", "cuda")
-    geometry = ["--ndf", str(args.ndf), "--nchk", str(args.nchk)]
     failed, device = [], {}
     for name in names:
         t0 = time.time()
-        rc, dev = run_child(name, geometry, env)
+        rc, dev = run_child(name, env)
         device = dev or device
         print(f"phase {name}: {'ok' if rc == 0 else f'FAILED rc={rc}'} "
               f"({time.time() - t0:.1f} s)", flush=True)
@@ -201,11 +203,13 @@ def _report_device(expect_count: int | None = None) -> dict:
     return d
 
 
-def parity(got, want, rtol: float, atol_rel: float) -> dict:
+def parity(got, want, rtol: float, atol_rel: float,
+           limit: float = 1.0) -> dict:
     """Compare ``got`` with a golden: the bound is ``|got - want| <=
     rtol*|want| + atol_rel*max|want|`` elementwise (the atol term covers
     Stokes Q/U/V, which noise drives near zero by cancellation). Returns
-    the max relative error, the worst bound ratio (<= 1 passes) and ok."""
+    the max relative error, the worst bound ratio (<= ``limit`` passes)
+    and ok."""
     import numpy as np
 
     got = np.asarray(got, np.float64)
@@ -218,8 +222,13 @@ def parity(got, want, rtol: float, atol_rel: float) -> dict:
     nz = np.abs(want) > atol_rel * scale
     rel = float((diff[nz] / np.abs(want[nz])).max()) if nz.any() else 0.0
     ratio = float((diff / np.where(bound > 0, bound, 1.0)).max())
-    ok = bool(np.isfinite(got).all() and ratio <= 1.0)
+    ok = bool(np.isfinite(got).all() and ratio <= limit)
     return {"ok": ok, "max_rel": rel, "bound_ratio": ratio}
+
+
+def fine_parity(got, want) -> dict:
+    """``parity`` at the fine-channel bound, held to ``FINE_LIMIT`` of it."""
+    return parity(got, want, FINE_RTOL, FINE_ATOL, limit=FINE_LIMIT)
 
 
 def direct_golden(name: str, block):
@@ -314,7 +323,8 @@ def run_cell(kw: dict, layout: str, dev_blocks: list, n_time: int = 5
 def cell_parity(kw: dict, outs: list, want, nchk_cmp: int) -> tuple:
     """(parity, stacked outputs) of one cell against its golden: coarse
     modes over every chunk at the direct bound, fine-channel modes over
-    their first ``nchk_cmp`` chunks, both blocks, at the fine bound."""
+    their first ``nchk_cmp`` chunks, both blocks, at the fine bound held
+    to ``FINE_LIMIT``."""
     import numpy as np
 
     if not kw.get("nfft"):
@@ -322,7 +332,7 @@ def cell_parity(kw: dict, outs: list, want, nchk_cmp: int) -> tuple:
     got = np.concatenate([o.reshape((-1,) + want.shape[1:-1]
                                     + (o.shape[-1],)) for o in outs])
     nf = nchk_cmp * 7 * kw["nfft"]
-    return parity(got[..., :nf], want, FINE_RTOL, FINE_ATOL), got
+    return fine_parity(got[..., :nf], want), got
 
 
 def child_modes(args) -> int:
@@ -376,7 +386,7 @@ def child_modes(args) -> int:
                  f"step={step * 1e3:.3f}ms hbm_share={share} "
                  f"realtime_x={ndf * C.TDF_SEC / step:.2f} [{card}]")
         if kw.get("nfft"):
-            res = parity(got["rows"], got["wire"], FINE_RTOL, FINE_ATOL)
+            res = fine_parity(got["rows"], got["wire"])
             ok &= res["ok"]
             _say(f"mode {name:27s} wire-vs-rows over {nchk} chunks "
                  f"{'ok' if res['ok'] else 'FAILED'} "
@@ -439,6 +449,8 @@ def child_cli(args) -> int:
         _say("FAILED: /dev/shm holds fewer than 2 blocks")
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     _say(f"work dir {work}: {_gb(shutil.disk_usage(work).free)} free")
+    # rings of this run only: another checkout's rings keep their keys
+    ring_keys = [uuid.uuid4().hex[:8] for _ in range(2)]
     try:
         for layout in ("wire", "rows"):
             bb = os.path.join(work, f"{layout}.dada")
@@ -448,7 +460,9 @@ def child_cli(args) -> int:
             if layout == "wire" and depth >= 2:
                 conf = os.path.join(work, "ring.conf")
                 with open(conf, "w") as f:
-                    f.write(f"[DiskdbConf]\nNBLK: {depth}\n")
+                    f.write(f"[DiskdbConf]\nNBLK: {depth}\n"
+                            f"KEY: {ring_keys[0]}\n"
+                            f"[Baseband2powerConf]\nKEY: {ring_keys[1]}\n")
                 out = os.path.join(work, "ring_out")
                 _run_cli(py + [cli + "launcher", "-c", conf, "-a", bb,
                                "-b", out, "-o", "power.dada",
@@ -465,6 +479,7 @@ def child_cli(args) -> int:
                 _say(f"cli launcher ring power wire: {len(got)} records "
                      f"{'ok' if res['ok'] else 'PARITY FAILED'} "
                      f"max_rel={res.get('max_rel')} "
+                     f"bound_ratio={res.get('bound_ratio')} "
                      f"realtime_x={rt[-1] if rt else 'n/a'}")
             for name, flags, kw in fine_runs:
                 out = os.path.join(work, f"{layout}_{name}.dada")
@@ -479,7 +494,7 @@ def child_cli(args) -> int:
                     got = got.reshape((-1,) + want.shape[1:-1]
                                       + (got.shape[-1],))
                     nf = nchk_cmp * C.NCHAN_CHK * kw["nfft"]
-                    res = parity(got[..., :nf], want, FINE_RTOL, FINE_ATOL)
+                    res = fine_parity(got[..., :nf], want)
                 else:
                     got = _records(out, (4, nchan))
                     res = parity(got, direct["stokes"], DIRECT_RTOL,
@@ -489,6 +504,7 @@ def child_cli(args) -> int:
                      f"{stats['nblocks']} blocks "
                      f"{'ok' if res['ok'] else 'PARITY FAILED'} "
                      f"max_rel={res.get('max_rel')} "
+                     f"bound_ratio={res.get('bound_ratio')} "
                      f"realtime_x={stats['realtime_x']:.3f} (file read, "
                      f"H2D, step and write; per-block s "
                      f"{[round(s, 3) for s in stats['block_seconds']]})")
@@ -500,6 +516,11 @@ def child_cli(args) -> int:
         ok = False
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        from paf_baseband2power_tpu.io import ringbuffer as rb
+
+        for key in ring_keys:       # left behind if the launcher was killed
+            if rb.exists(key):
+                rb.destroy(key)
     return 0 if ok else 1
 
 
@@ -580,8 +601,7 @@ def child_four(args) -> int:
                     else:
                         want = one(xi)
                     want = np.asarray(want)
-                    res = parity(got[i, b].reshape(want.shape), want,
-                                 FINE_RTOL, FINE_ATOL)
+                    res = fine_parity(got[i, b].reshape(want.shape), want)
                     worst = max(worst, res.get("bound_ratio", np.inf))
                     ok &= res["ok"]
             ok &= len(cards) == 4
@@ -589,7 +609,7 @@ def child_four(args) -> int:
                  f"{'pfb' + str(nfft) if nfft else 'power'}: input shards "
                  f"on cards {sorted(cards)}, per-block wall {wall * 1e3:.2f}"
                  f" ms (incl. allgather), vs card-0 step bound_ratio="
-                 f"{worst:.3g} {'ok' if worst <= 1 else 'FAILED'}")
+                 f"{worst:.3g} {'ok' if worst <= FINE_LIMIT else 'FAILED'}")
             del x, local
 
     # 2. time-sharded streaming PFB: ppermute halo + psum over 4 cards
@@ -608,7 +628,7 @@ def child_four(args) -> int:
             ok &= len(placement(x)) == 4
         o, h = step(x, h)
         w, h1 = one(jax.device_put(blk, devs[0]), h1)
-        res = parity(np.asarray(o), np.asarray(w), FINE_RTOL, FINE_ATOL)
+        res = fine_parity(np.asarray(o), np.asarray(w))
         ok &= res["ok"]
         outs.append(np.asarray(o))
         _say(f"time-sharded streaming pfb{nfft} block {i}: output on cards "
@@ -617,7 +637,7 @@ def child_four(args) -> int:
              f"bound_ratio={res['bound_ratio']:.3g}")
     want = fine_golden({"nfft": nfft}, blocks, min(2, nchk))
     nf = min(2, nchk) * 7 * nfft
-    res = parity(np.stack(outs)[:, :nf], want, FINE_RTOL, FINE_ATOL)
+    res = fine_parity(np.stack(outs)[:, :nf], want)
     ok &= res["ok"]
     _say(f"time-sharded streaming pfb{nfft} vs 2-chunk golden: "
          f"{'ok' if res['ok'] else 'FAILED'} max_rel={res['max_rel']} "

@@ -1,5 +1,6 @@
-"""chip_smoke.py's parts that run without a card: phase selection, the
-result line, the parity bound, and failing where there is no GPU."""
+"""chip_smoke.py's parts that run without a card: phase selection and
+its options, the result line, the parity bound, and failing where there is
+no GPU."""
 
 import json
 import os
@@ -17,19 +18,29 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_default_runs_every_one_card_phase_in_order():
-    assert CS.select_phases(None, False) == ["device", "modes", "cli",
-                                             "gpu_tests"]
+    assert CS.select_phases(False) == ["device", "modes", "cli", "gpu_tests"]
 
 
 def test_four_cards_runs_only_its_phase():
-    assert CS.select_phases(None, True) == ["four"]
-    assert CS.select_phases("a,b,c", True) == ["four"]
+    assert CS.select_phases(True) == ["four"]
 
 
-def test_phase_subset_and_unknown():
-    assert CS.select_phases("c,a", False) == ["device", "cli"]
-    with pytest.raises(ValueError):
-        CS.select_phases("a,x", False)
+@pytest.mark.parametrize("argv", [["--phase", "a"], ["--ndf", "64"],
+                                  ["--nchk", "2"], ["--four-cards", "x"]])
+def test_parent_takes_only_four_cards(argv, capsys):
+    """The parent runs the full geometry and every phase: a subset or a
+    reduced geometry is refused before any card is asked for."""
+    with pytest.raises(SystemExit) as e:
+        CS.main(argv)
+    assert e.value.code == 2
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_child_refuses_an_unknown_phase(capsys):
+    with pytest.raises(SystemExit) as e:
+        CS.main(["--child", "bogus"])
+    assert e.value.code == 2
+    assert '"ok"' not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("count", [1, 4])
@@ -50,6 +61,18 @@ def test_parity_bound():
     assert not bad["ok"] and bad["bound_ratio"] > 1
     assert not CS.parity(want[:2], want, 1e-5, 1e-6)["ok"]       # shape
     assert not CS.parity(want * np.nan, want, 1e-5, 1e-6)["ok"]
+
+
+def test_fine_parity_holds_to_its_limit():
+    """A fine-channel result using half of its bound (as implicit TF32
+    matmuls do) passes the bound but fails the fine-mode limit."""
+    want = np.array([1.0, 2.0, 4.0])
+    half = want * (1 + 0.5 * CS.FINE_RTOL)
+    assert CS.parity(half, want, CS.FINE_RTOL, 0.0)["ok"]
+    res = CS.fine_parity(half, want)
+    assert not res["ok"] and CS.FINE_LIMIT < res["bound_ratio"] < 1
+    close = want * (1 + 0.01 * CS.FINE_RTOL)
+    assert CS.fine_parity(close, want)["ok"]
 
 
 def _no_result(stdout: str) -> bool:
